@@ -1,0 +1,1 @@
+"""Tensor operations of the port and the wrappers of its CUDA kernels."""
