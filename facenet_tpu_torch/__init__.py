@@ -90,3 +90,11 @@ class FaceNet:
         if image_arrays.ndim == 3:
             image_arrays = np.expand_dims(image_arrays, 0)
         return self.evaluate(image_arrays)
+
+
+def __getattr__(name):
+    # lazy, so `import facenet_tpu_torch` does not load the detector
+    if name == 'FacePipeline':
+        from facenet_tpu_torch.pipeline import FacePipeline
+        return FacePipeline
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')

@@ -206,3 +206,23 @@ def validate(app_file_name, options):
     cfg.seed_key = set_seed(cfg.seed)
     _write_provenance(cfg, cfg.logdir, app_file_name)
     return cfg
+
+
+def extract_faces(app_file_name, options):
+    """Config for the extract_faces app: output dir (default
+    ``<dataset>_extracted_<size>``), ``log.txt`` and ``statistics.h5`` in
+    it, seeded RNGs, provenance written."""
+    cfg = load_config(app_file_name, options)
+
+    if not cfg.outdir:
+        cfg.outdir = (f'{Path(str(cfg.dataset.path)).expanduser()}'
+                      f'_extracted_{cfg.image.size}')
+
+    cfg.outdir = Path(cfg.outdir).expanduser()
+    cfg.logdir = cfg.outdir
+    cfg.logfile = cfg.outdir / 'log.txt'
+    cfg.h5file = cfg.outdir / 'statistics.h5'
+
+    cfg.seed_key = set_seed(cfg.seed)
+    _write_provenance(cfg, cfg.logdir, app_file_name)
+    return cfg

@@ -36,6 +36,15 @@ def _flatten(tree, prefix=''):
             yield name, value
 
 
+def write(file, name, data, mode='a'):
+    """Store `data` under `name`, replacing any existing dataset."""
+    array = np.atleast_1d(data)
+    with _open(file, mode) as hf:
+        if str(name) in hf:
+            del hf[str(name)]
+        hf.create_dataset(str(name), data=array, dtype=array.dtype, **GZIP)
+
+
 def write_dict(file, dct, group=None):
     """Append a (nested) dict of scalars/arrays into growable datasets.
 

@@ -1,5 +1,6 @@
 """Run-directory artifacts: append-only text logs, elapsed-time records,
-the arguments dump and provenance (revision_info.txt)."""
+the arguments dump and provenance (revision_info.txt); image files read
+and written with PIL, which is imported only there."""
 
 from __future__ import annotations
 
@@ -8,6 +9,8 @@ import sys
 import time
 from datetime import datetime
 from pathlib import Path
+
+import numpy as np
 
 SEPARATOR = '-' * 64
 
@@ -24,6 +27,33 @@ def _writable(p):
     p = _as_path(p)
     p.parent.mkdir(parents=True, exist_ok=True)
     return p
+
+
+def makedirs(p):
+    Path(str(p)).expanduser().mkdir(parents=True, exist_ok=True)
+
+
+def read_image(file):
+    """Decode an image file to a uint8 RGB array (IOError if unreadable)."""
+    from PIL import Image
+    path = _as_path(file)
+    try:
+        with Image.open(path) as img:
+            return np.asarray(img.convert('RGB'))
+    except Exception as exc:
+        raise IOError(f'cannot read image {path}: {exc}') from exc
+
+
+def write_image(image, filename):
+    """Save a uint8 RGB array or PIL image; parent directories are created."""
+    from PIL import Image
+    path = _writable(filename)
+    if not isinstance(image, Image.Image):
+        image = Image.fromarray(np.asarray(image, np.uint8), mode='RGB')
+    try:
+        image.convert('RGB').save(path)
+    except Exception as exc:
+        raise IOError(f'cannot write image {path}: {exc}') from exc
 
 
 def write_to_file(file, text, mode='w'):

@@ -18,23 +18,20 @@ plain PyTorch version of the same function. The kernel is compiled with
 
 from __future__ import annotations
 
-import hashlib
-import os
-from pathlib import Path
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from facenet_tpu_torch.ops.cuda_build import CudaKernel, check
+
 MAX_THRESHOLDS = 127
 
-_PACKAGE = Path(__file__).resolve().parents[1]
-SOURCE = _PACKAGE / 'csrc' / 'pair_below_counts.cu'
-BUILD_DIR = _PACKAGE / '_build'
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
-
-_library = None
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+KERNEL = CudaKernel('pair_below_counts.cu', {
+    'pair_below_counts_launch': [_ptr, _ptr, _ptr, _ptr, _ptr,
+                                 _i32, _i32, _i32, _ptr, _ptr]})
 
 
 class PairInputs(NamedTuple):
@@ -44,60 +41,6 @@ class PairInputs(NamedTuple):
     w_pos: torch.Tensor        # [N] float64, 1/pos_pairs(label)
     inv_n: torch.Tensor        # [N] float64, 1/count(label)
     cutoffs: torch.Tensor      # [T] float32, non-increasing
-
-
-def _nvcc():
-    import shutil
-    found = shutil.which('nvcc')
-    if found:
-        return found
-    default = Path('/usr/local/cuda/bin/nvcc')
-    if default.exists():
-        return str(default)
-    raise RuntimeError('nvcc not found: the CUDA toolkit is needed to build '
-                       f'{SOURCE.name}')
-
-
-def library_path():
-    """The shared library for the current source (named by its hash)."""
-    digest = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f'libpair_below_counts-{digest}.so'
-
-
-def build():
-    """Compile the kernel (unless this source is already built) and load it.
-
-    Returns the ctypes library; its ``build_log`` holds nvcc's output
-    (``-Xptxas -v``: registers, shared memory, spills) or '' when the
-    library was already on disk.
-    """
-    global _library
-    if _library is not None:
-        return _library
-    import ctypes
-    import subprocess
-
-    out = library_path()
-    log = ''
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                               f'{" ".join(cmd)}\n{proc.stderr}')
-        os.replace(tmp, out)
-        log = proc.stdout + proc.stderr
-
-    lib = ctypes.CDLL(str(out))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.pair_below_counts_launch.argtypes = [ptr, ptr, ptr, ptr, ptr,
-                                             i32, i32, i32, ptr, ptr]
-    lib.pair_below_counts_launch.restype = i32
-    lib.build_log = log
-    _library = lib
-    return lib
 
 
 def cutoffs_for(thresholds, metric):
@@ -162,7 +105,7 @@ def pair_histogram(inputs: PairInputs) -> torch.Tensor:
         raise ValueError('embeddings must be a contiguous float32 [N, D] tensor')
     n, d = emb.shape
     t = inputs.cutoffs.numel()
-    lib = build()
+    lib = KERNEL.load()
     for name, tensor, dtype in (('labels', inputs.labels, torch.int32),
                                 ('w_pos', inputs.w_pos, torch.float64),
                                 ('inv_n', inputs.inv_n, torch.float64),
@@ -182,9 +125,7 @@ def pair_histogram(inputs: PairInputs) -> torch.Tensor:
             emb.data_ptr(), inputs.labels.data_ptr(), inputs.w_pos.data_ptr(),
             inputs.inv_n.data_ptr(), inputs.cutoffs.data_ptr(), n, d, t,
             hist.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f'pair_below_counts kernel launch failed: '
-                           f'cudaError {err}')
+    check(err, 'pair_below_counts')
     pair_histogram.launches += 1
     return hist
 
