@@ -6,8 +6,9 @@
 Phases, each of which fails the run (non-zero exit) when its check fails:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels csrc/pair_below_counts.cu, dense_warp.cu and
-     pnet_pyramid.cu for sm_90a (one nvcc each, all started together);
+  2. build the CUDA kernels csrc/pair_below_counts.cu, dense_warp.cu,
+     pnet_pyramid.cu, pnet_level.cu and stem_fused.cu for sm_90a (one nvcc
+     each, all started together);
   3. kernel vs its plain PyTorch version at N=4096/D=512 (metrics 0 and 1),
      at the main path's fold sizes N=936 and N=104 (D=512), and at
      N=1000/D=17: cumulative counts agree to rtol 1e-6, beyond the weight
@@ -60,7 +61,36 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      back to back from Python otherwise reads the host's launch rate); the
      pipeline per batch of 16 scenes (scenes/s, embedding slots/s and
      aligned embeddings of detected faces/s) and its stages alone, host
-     included; and a torch.profiler breakdown of one pipeline batch.
+     included; and a torch.profiler breakdown of one pipeline batch;
+ 13. ptxas registers, shared memory and spills of the fused stem and the
+     one-level P-Net kernels;
+ 14. the fused stem (B5) kernel vs its plain version with the full-width
+     IRv1's weights: batch 8 (one image of constant 0, one of 255, six of
+     noise) and batch 128 of uint8 noise through image_processing; bound
+     max |d| <= 0.01 max |plain| (both round to bf16 after each conv, so one
+     rounding, at most 2^-7 of a value, may differ);
+ 15. the one-level P-Net kernels vs the plain version: B4 on planes at a
+     pitch rounded up to 128 with N(0, 3) noise past the true width, B6
+     with float32 weights, B7 on NHWC pixels with raw heads out, at
+     (24, 100), (61, 83), (40, 129) and at level 0 of the 480x640 pyramid
+     (288x384, batch 16); bounds probs 0.02, reg and raw heads 0.05;
+ 16. this slice's main paths, every launch count reset just before each
+     and read just after: (a) FastEmbedder(stem='fused'), full-width IRv1,
+     4 batches of 128 (exactly 4 B5 launches; finite unit-norm embeddings;
+     min cosine >= 0.999 against stem='cudnn'); (b) the cascade with
+     pnet_impl='flat' through FaceDetector at 480x640 on phase 10's 64
+     scenes in batches of 16 (exactly 40 B4 launches, no B3; the same valid
+     masks as the 'pyramid' cascade, boxes and landmarks within 1.5 px,
+     scores within 0.02); (c) the B6 tool and (d) the B7 tool, each
+     through its main();
+ 17. times (device time, host enqueue beside): B5 per 128 images, rotating
+     through inputs larger than the L2, beside its plain version and the
+     cuDNN prefix (F.conv2d x3 + F.max_pool2d); serving per 128 under each
+     stem in turns (cudnn, fused, fused, cudnn), as the host issues it and
+     as the device's busy time under torch.profiler; B4, B6 and B7 at level 0,
+     batch 16, beside the plain version, the cuDNN P-Net on that level and
+     the whole-pyramid kernel's share for that level's operations; the
+     cascade alone under 'flax', 'flat' and 'pyramid'.
 
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -71,7 +101,6 @@ from __future__ import annotations
 
 import itertools
 import json
-import subprocess
 import sys
 import time
 
@@ -103,65 +132,6 @@ def clustered(rng, n_classes, per_class, dim, spread):
     emb = centres[labels] + spread * noise
     emb /= np.linalg.norm(emb, axis=1, keepdims=True)
     return emb.astype(np.float32), labels
-
-
-def cuda_ms(fn, reps, warmup=1, windows=3):
-    """Milliseconds per call of fn() on the current stream: the mean over
-    `reps` calls in each of `windows` windows, after `warmup` calls. Returns
-    (median window, all windows)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop) / reps)
-    return float(np.median(times)), times
-
-
-def device_ms(fn, reps, warmup=2, windows=3):
-    """Device milliseconds per call of fn(), without the host's launch
-    rate: each window's calls are queued behind a spin kernel that lasts
-    longer than the host takes to enqueue them, so the events bracket
-    back-to-back device work. Returns (median window, all windows, host
-    enqueue ms per call)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host_ms = (time.perf_counter() - t0) / reps * 1e3
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.cuda._sleep(10_000_000)
-    stop.record()
-    torch.cuda.synchronize()
-    cycles_per_ms = 10_000_000 / start.elapsed_time(stop)
-    times = []
-    for _ in range(windows):
-        torch.cuda._sleep(int(cycles_per_ms * (2 * host_ms * reps + 1)))
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop) / reps)
-    return float(np.median(times)), times, host_ms
-
-
-def _spread(times):
-    return '/'.join(f'{t:.3f}' for t in times)
 
 
 def compare_kernel_plain(pair_counts, inputs, label):
@@ -235,10 +205,15 @@ def print_ptxas(lib):
 
 def _launch_counters():
     from facenet_tpu_torch.detectors.mtcnn import pnet
-    from facenet_tpu_torch.ops import pair_counts, warp
+    from facenet_tpu_torch.ops import pair_counts, stem, warp
+    from facenet_tpu_torch.tools import try_pnet_v3
     return {'pair_below_counts': pair_counts.pair_histogram,
             'dense_warp': warp.dense_warp,
-            'pnet_pyramid': pnet.pnet_forward_pyramid}
+            'pnet_pyramid': pnet.pnet_forward_pyramid,
+            'stem_fused': stem.stem_forward,
+            'pnet_flat': pnet.pnet_forward_flat,
+            'pnet_level': pnet.pnet_forward_level,
+            'pnet_trunk_nhwc': try_pnet_v3.pnet_trunk_nhwc}
 
 
 def reset_launches():
@@ -248,6 +223,11 @@ def reset_launches():
 
 def read_launches():
     return {name: fn.launches for name, fn in _launch_counters().items()}
+
+
+def only(**launches):
+    """The launch counts of a path that ran these kernels and no other."""
+    return {name: launches.get(name, 0) for name in _launch_counters()}
 
 
 def warp_cases(rng):
@@ -357,9 +337,10 @@ def compare_pnet(pnet, net, levels, label):
     return dp, dr
 
 
-def device_breakdown(fn, top=12):
-    """torch.profiler over one call of fn(): kernel time by name and the
-    device's busy share of the call's wall time."""
+def device_busy(fn, calls=1):
+    """torch.profiler over `calls` calls of fn(): (device busy ms per call,
+    wall ms per call, kernel rows). The busy time is the sum of the kernels'
+    own durations, so it does not depend on how fast the host issues them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -368,17 +349,25 @@ def device_breakdown(fn, top=12):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in rows)
-    if busy_us <= 0:
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / calls
+    return busy_ms, wall_ms, rows
+
+
+def device_breakdown(fn, top=12):
+    """torch.profiler over one call of fn(): kernel time by name and the
+    device's busy share of the call's wall time."""
+    busy_ms, wall_ms, rows = device_busy(fn)
+    if busy_ms <= 0:
         print('  profiler: no device time recorded (not measured)')
         return
     print(f'  profiler: {len(rows)} kernel names, device busy '
-          f'{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall '
-          f'({busy_us / wall_us:.3f} busy share)')
+          f'{busy_ms:.3f} ms of {wall_ms:.3f} ms wall '
+          f'({busy_ms / wall_ms:.3f} busy share)')
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         print(f'    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} '
               f'{e.key[:90]}')
@@ -386,7 +375,9 @@ def device_breakdown(fn, top=12):
 
 def detection_phases(rng, libs, bundle):
     """Phases 7-12 (see the module docstring) with the full-width IRv1
-    `bundle`; returns the kernels-line entries of B3 and B2."""
+    `bundle`; returns the kernels-line entries of B3 and B2, and what the
+    later phases reuse: the 64 scenes, the 'pyramid' cascade, the pyramid
+    levels of the first 16 scenes and B3's time on them."""
     import torch
     import torch.nn.functional as F
 
@@ -400,6 +391,8 @@ def detection_phases(rng, libs, bundle):
                                                  dense_warp_inputs)
     from facenet_tpu_torch.pipeline import FacePipeline
     from facenet_tpu_torch.utils.synthetic import render_scene
+    from facenet_tpu_torch.utils.timing import cuda_ms, device_ms
+    from facenet_tpu_torch.utils.timing import spread as _spread
 
     # 7. the detection kernels' build report
     print('[7] ptxas of the detection kernels')
@@ -455,8 +448,7 @@ def detection_phases(rng, libs, bundle):
     path_s = time.monotonic() - t0
     counts = read_launches()
     print(f'  {path_s:.2f} s, kernel launches {counts}')
-    require(counts == {'pair_below_counts': 0, 'dense_warp': 4,
-                       'pnet_pyramid': 4},
+    require(counts == only(dense_warp=4, pnet_pyramid=4),
             f'expected 4 pnet_pyramid and 4 dense_warp launches, got {counts}')
     valid = np.concatenate([o['valid'] for o in outs])
     emb = np.concatenate([o['embeddings'] for o in outs])
@@ -614,7 +606,9 @@ def detection_phases(rng, libs, bundle):
           f'IRv1 embedding of 32 crops {embed_ms:.3f} ms')
     device_breakdown(lambda: pipe.dispatch(scenes16))
 
-    return [{
+    context = {'images': images, 'det': det, 'levels': levels,
+               'pyramid_ms': b3_ms}
+    return context, [{
         'name': 'pnet_pyramid',
         'route': 'cuda',
         'source': 'facenet_tpu_torch/csrc/pnet_pyramid.cu',
@@ -641,6 +635,365 @@ def detection_phases(rng, libs, bundle):
     }]
 
 
+def stem_work(batch):
+    """(flops, bytes) of the stem prefix on `batch` 160x160 images: the
+    multiply-adds of the three convs (x2); images read once, pooled maps
+    written once (bf16), packed weights read once."""
+    from facenet_tpu_torch.ops import stem
+    macs = 79 * 79 * 48 * 32 + 77 * 77 * 288 * 32 + 75 * 75 * 288 * 64
+    nbytes = (batch * (160 * 160 * 3 + 37 * 37 * 64) + stem.N_HALFS) * 2
+    return 2 * batch * macs, nbytes
+
+
+def flat_planes(rng, level, pitch):
+    """A [B, 3, sh, sw] bf16 level as planes [B, 3, sh * pitch] with N(0, 3)
+    noise in the columns past sw."""
+    import torch
+    b, _, sh, sw = level.shape
+    pad = torch.from_numpy(rng.normal(0, 3, (b, 3, sh, pitch))
+                           .astype(np.float32)).to(level.device,
+                                                   torch.bfloat16)
+    pad[..., :sw] = level
+    return pad.reshape(b, 3, sh * pitch)
+
+
+def compare_level_kernels(rng, net, level, label):
+    """B4, B6 and B7 against the plain version on one level; returns the
+    max abs differences {kernel name: worst of its outputs}."""
+    import torch
+
+    from facenet_tpu_torch.detectors.mtcnn import pnet
+    from facenet_tpu_torch.tools import try_pnet_v3
+    b, _, sh, sw = level.shape
+    pitch = -(-sw // 128) * 128
+    rounded = pnet.packed_weights(net, level.device)
+    unrounded = pnet.pack_level_weights(net).to(level.device)
+    p4, r4 = pnet.pnet_forward_flat(net, flat_planes(rng, level, pitch), sh,
+                                    pitch, sw)
+    p6, r6 = pnet.pnet_forward_level(unrounded, level)
+    z7 = try_pnet_v3.pnet_trunk_nhwc(level.permute(0, 2, 3, 1).contiguous(),
+                                     rounded)
+    torch.cuda.synchronize()
+    pw, rw = pnet.level_plain(rounded, level)
+    pu, ru = pnet.level_plain(unrounded, level)
+    zw = pnet.level_plain(rounded, level, raw=True)
+
+    def diff(a, b):
+        require(a.shape == b.shape, f'{label}: shapes {a.shape} {b.shape}')
+        return float((a - b).abs().max())
+
+    errs = {'pnet_flat': (diff(p4, pw), diff(r4, rw)),
+            'pnet_level': (diff(p6, pu), diff(r6, ru)),
+            'pnet_trunk_nhwc': (0.0, diff(z7, zw))}
+    print(f'  {label} (batch {b}, {sh}x{sw}, pitch {pitch}): max |kernel - '
+          'plain| ' + ', '.join(f'{k} probs {p:.3e} reg/raw {r:.3e}'
+                                for k, (p, r) in errs.items()))
+    for name, (dp, dr) in errs.items():
+        require(dp < 0.02 and dr < 0.05,
+                f'{name} kernel != plain ({label}): {dp} {dr}')
+    return {name: max(pair) for name, pair in errs.items()}
+
+
+def slice3_phases(rng, libs, context):
+    """Phases 13-17 (see the module docstring); returns the kernels-line
+    entries of B5, B4, B6 and B7."""
+    import torch
+
+    from facenet_tpu_torch.detectors.face_detector import FaceDetector
+    from facenet_tpu_torch.detectors.mtcnn import pnet
+    from facenet_tpu_torch.models import irv1_fast
+    from facenet_tpu_torch.ops import stem
+    from facenet_tpu_torch.ops.preprocessing import image_processing
+    from facenet_tpu_torch.tools import try_pallas_pnet, try_pnet_v3
+    from facenet_tpu_torch.utils.timing import cuda_ms, device_ms
+    from facenet_tpu_torch.utils.timing import spread as _spread
+
+    smi = context['smi']
+    images, det, levels = context['images'], context['det'], context['levels']
+
+    # 13. the new kernels' build report
+    print('[13] ptxas of the fused stem and the one-level P-Net kernels')
+    for name in ('stem_fused', 'pnet_level'):
+        print(f'  {name}:')
+        print_ptxas(libs[name])
+
+    # 14. B5 kernel vs plain, full-width weights
+    print('[14] stem_fused kernel vs plain')
+    fused = irv1_fast.FastEmbedder(context['variables'], device='cuda',
+                                   stem='fused')
+    cudnn = irv1_fast.FastEmbedder(context['variables'], device='cuda',
+                                   stem='cudnn')
+    params = fused.params
+    stem_errs = []
+    for batch in (8, 128):
+        raw = rng.integers(0, 256, (batch, 160, 160, 3), dtype=np.uint8)
+        if batch == 8:
+            raw[0], raw[1] = 0, 255
+        with torch.inference_mode():
+            x = image_processing(torch.from_numpy(raw).cuda(), 160, 0,
+                                 dtype=torch.bfloat16)
+            got = stem.stem_forward(params, x)
+            torch.cuda.synchronize()
+            want = stem.stem_forward_plain(params, x)
+        require(tuple(got.shape) == (batch, 64, 37, 37)
+                and got.dtype == torch.bfloat16
+                and got.is_contiguous(memory_format=torch.channels_last),
+                f'stem output {got.dtype} {tuple(got.shape)} '
+                f'strides {got.stride()}')
+        # elementwise on the NCHW views: no copy into another layout
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        stem_errs.append(err)
+        print(f'  batch {batch}: max |kernel - plain| {err:.3e} = '
+              f'{err / scale:.3e} of max |plain| {scale:.3f}; '
+              f'{float((got != want).float().mean()):.2e} of the values '
+              'differ')
+        require(scale > 0 and err <= 0.01 * scale,
+                f'stem_fused kernel != plain (batch {batch}): {err} of '
+                f'{scale}')
+    x128 = x
+
+    # 15. B4, B6, B7 kernels vs plain
+    print('[15] one-level P-Net kernels vs plain')
+    level_errs = {}
+    odd = [torch.from_numpy(rng.integers(0, 256, (2, 3, sh, sw))
+                            .astype(np.float32)).cuda()
+           for sh, sw in ((24, 100), (61, 83), (40, 129))]
+    from facenet_tpu_torch.detectors.mtcnn.networks import normalize_crops
+    cases = [(normalize_crops(x).to(torch.bfloat16).contiguous(), 'odd level')
+             for x in odd] + [(levels[0], f'level 0 of the {SCENE} pyramid')]
+    for level, label in cases:
+        for name, err in compare_level_kernels(rng, det.pnet, level,
+                                               label).items():
+            level_errs[name] = max(level_errs.get(name, 0.0), err)
+
+    # 16. this slice's main paths
+    print("[16a] main path: FastEmbedder(stem='fused'), full-width IRv1, "
+          '4 batches of 128 (cuda)')
+    batches = [torch.from_numpy(rng.integers(
+        0, 256, (128, 160, 160, 3), dtype=np.uint8)).cuda() for _ in range(4)]
+    reset_launches()
+    t0 = time.monotonic()
+    emb = torch.cat([fused(batch) for batch in batches])
+    torch.cuda.synchronize()
+    path_s = time.monotonic() - t0
+    counts_a = read_launches()
+    print(f'  {path_s:.3f} s, kernel launches {counts_a}')
+    require(counts_a == only(stem_fused=4),
+            f'expected 4 stem_fused launches alone, got {counts_a}')
+    ref = torch.cat([cudnn(batch) for batch in batches])
+    norms = emb.norm(dim=1)
+    cos = float((emb * ref).sum(dim=1).min())
+    require(tuple(emb.shape) == (512, 512) and bool(emb.isfinite().all())
+            and float((norms - 1).abs().max()) < 1e-5,
+            'fused-stem embeddings are not finite and unit-norm')
+    print(f"  stem='fused' vs stem='cudnn': min cosine {cos:.6f}")
+    require(cos >= 0.999, f'min cosine {cos} < 0.999')
+
+    print("[16b] main path: MTCNN(pnet_impl='flat') through FaceDetector, 64 "
+          'scenes in batches of 16 (cuda)')
+    flat = FaceDetector(image_shape=SCENE, device='cuda',
+                        pnet_impl='flat').backend_for(SCENE)
+    reset_launches()
+    t0 = time.monotonic()
+    outs = [flat.detect_batch(images[i:i + 16]) for i in range(0, 64, 16)]
+    path_s = time.monotonic() - t0
+    counts_b = read_launches()
+    print(f'  {path_s:.2f} s, kernel launches {counts_b}')
+    require(len(levels) == 10 and counts_b == only(pnet_flat=40),
+            f'expected 40 pnet_flat launches alone, got {counts_b}')
+    refs = [det.detect_batch(images[i:i + 16]) for i in range(0, 64, 16)]
+    got = {k: np.concatenate([o[k] for o in outs])
+           for k in ('valid', 'boxes', 'landmarks', 'scores')}
+    want = {k: np.concatenate([o[k] for o in refs]) for k in got}
+    v = want['valid']
+    require(np.array_equal(got['valid'], v),
+            "valid masks differ between 'flat' and 'pyramid'")
+    d_box = float(np.abs(got['boxes'][v] - want['boxes'][v]).max())
+    d_lmk = float(np.abs(got['landmarks'][v] - want['landmarks'][v]).max())
+    d_score = float(np.abs(got['scores'][v] - want['scores'][v]).max())
+    print(f"  'flat' vs 'pyramid' cascade: {int(v.sum())} valid faces in 64 "
+          f'scenes, boxes {d_box:.3e} px, landmarks {d_lmk:.3e} px, scores '
+          f'{d_score:.3e}')
+    require(v.sum() >= 64 and d_box < 1.5 and d_lmk < 1.5 and d_score < 0.02,
+            "'flat' cascade != 'pyramid' cascade")
+
+    print('[16c] the B6 tool: python -m facenet_tpu_torch.tools.'
+          'try_pallas_pnet --iters 3')
+    reset_launches()
+    try_pallas_pnet.main(['--iters', '3'])
+    counts_c = read_launches()
+    print(f'  kernel launches {counts_c}')
+    require(counts_c['pnet_level'] > 0
+            and counts_c == only(pnet_level=counts_c['pnet_level']),
+            f'expected pnet_level launches alone, got {counts_c}')
+    print('[16d] the B7 tool: python -m facenet_tpu_torch.tools.try_pnet_v3')
+    reset_launches()
+    try_pnet_v3.main([])
+    counts_d = read_launches()
+    print(f'  kernel launches {counts_d}')
+    require(counts_d['pnet_trunk_nhwc'] > 0
+            and counts_d == only(pnet_trunk_nhwc=counts_d['pnet_trunk_nhwc']),
+            f'expected pnet_trunk_nhwc launches alone, got {counts_d}')
+
+    # 17. times
+    print(f'[17] times on {smi} (median of 3 windows; kernels and their '
+          'yardsticks in device time, host enqueue per call beside)')
+    copies = [(x128.clone(),) for _ in range(3)]   # 59 MB in, past the L2
+    with torch.inference_mode():
+        b5_ms, b5_all, b5_host = device_ms(
+            rotating(lambda x: stem.stem_forward(params, x), copies), 20)
+        b5_plain, b5_plain_all, _ = device_ms(
+            rotating(lambda x: stem.stem_forward_plain(params, x), copies), 5)
+        b5_lib, b5_lib_all, b5_lib_host = device_ms(
+            rotating(lambda x: irv1_fast.stem_prefix(params, x), copies), 20)
+        lib_err = float((irv1_fast.stem_prefix(params, x128).float()
+                         - stem.stem_forward(params, x128).float())
+                        .abs().max())
+    del copies
+    flops, nbytes = stem_work(128)
+    b5_ops, b5_bytes = (flops / H100_BF16_FLOPS * 1e3,
+                        nbytes / H100_HBM_BYTES * 1e3)
+    b5_bound = max(b5_ops, b5_bytes)
+    print(f'  stem_fused, 128 images: kernel {b5_ms:.4f} ms '
+          f'({_spread(b5_all)}; host {b5_host:.4f}) = '
+          f'{flops / b5_ms / 1e9:.1f} TFLOP/s, plain {b5_plain:.4f} ms '
+          f'({_spread(b5_plain_all)}), cuDNN prefix {b5_lib:.4f} ms '
+          f'({_spread(b5_lib_all)}; host {b5_lib_host:.4f}; max |cuDNN - '
+          f'kernel| {lib_err:.3e}), bound {b5_bound:.4f} ms ({flops:.4e} '
+          f'flop at the bf16 tensor-core rate, {nbytes:.4e} bytes; '
+          f'{flops / H100_FP32_FLOPS * 1e3:.4f} ms at the FP32 rate)')
+
+    serving = {'cudnn': [], 'fused': []}
+    busy = {'cudnn': [], 'fused': []}
+    for name in ('cudnn', 'fused', 'fused', 'cudnn'):
+        embedder = fused if name == 'fused' else cudnn
+        ms, _ = cuda_ms(lambda: embedder(batches[0]), reps=20, warmup=5)
+        serving[name].append(ms)
+        busy[name].append(device_busy(lambda: embedder(batches[0]), 5)[0])
+    print('  serving per batch of 128 (uint8 on the card; in turns cudnn, '
+          'fused, fused, cudnn), host included: ' + '; '.join(
+              f"stem='{name}' {_spread(times)} ms = "
+              f'{128e3 / np.mean(times):.1f} embeddings/s'
+              for name, times in serving.items())
+          + '; device busy time alone (torch.profiler, the sum of the '
+          "kernels' durations over 5 batches): " + '; '.join(
+              f"stem='{name}' {_spread(times)} ms = "
+              f'{128e3 / np.mean(times):.1f} embeddings/s'
+              for name, times in busy.items()))
+
+    level0 = levels[0]
+    b, _, sh, sw = level0.shape
+    planes0 = level0.view(b, 3, sh * sw)
+    nhwc0 = level0.permute(0, 2, 3, 1).contiguous()
+    rounded = pnet.packed_weights(det.pnet, level0.device)
+    unrounded = pnet.pack_level_weights(det.pnet).to(level0.device)
+    with torch.inference_mode():
+        b4_ms, b4_all, b4_host = device_ms(
+            lambda: pnet.pnet_forward_flat(det.pnet, planes0, sh, sw, sw), 20)
+        b6_ms, b6_all, b6_host = device_ms(
+            lambda: pnet.pnet_forward_level(unrounded, level0), 20)
+        b7_ms, b7_all, b7_host = device_ms(
+            lambda: try_pnet_v3.pnet_trunk_nhwc(nhwc0, rounded), 20)
+        lv_plain, lv_plain_all, _ = device_ms(
+            lambda: pnet.level_plain(rounded, level0), 5)
+        b6_plain, _, _ = device_ms(
+            lambda: pnet.level_plain(unrounded, level0), 5)
+        raw_plain, raw_plain_all, _ = device_ms(
+            lambda: pnet.level_plain(rounded, level0, raw=True), 5)
+        lv_lib, lv_lib_all, lv_lib_host = device_ms(
+            lambda: det.pnet.forward_nchw(level0), 10)
+        b7_lib, b7_lib_all, _ = device_ms(lambda: det.pnet(nhwc0), 10)
+    flops0, bytes0 = pnet_work([level0])
+    flops_all, _ = pnet_work(levels)
+    lv_ops, lv_bytes = (flops0 / H100_BF16_FLOPS * 1e3,
+                        bytes0 / H100_HBM_BYTES * 1e3)
+    lv_bound = max(lv_ops, lv_bytes)
+    b6_ops = flops0 / H100_FP32_FLOPS * 1e3       # float32 weights
+    b6_bound = max(b6_ops, lv_bytes)
+    share = context['pyramid_ms'] * flops0 / flops_all
+    print(f'  level 0 ({sh}x{sw}), batch {b}: pnet_flat {b4_ms:.4f} ms '
+          f'({_spread(b4_all)}; host {b4_host:.4f}), pnet_level '
+          f'{b6_ms:.4f} ms ({_spread(b6_all)}; host {b6_host:.4f}), '
+          f'pnet_trunk_nhwc {b7_ms:.4f} ms ({_spread(b7_all)}; host '
+          f'{b7_host:.4f}); plain {lv_plain:.4f} ms '
+          f'({_spread(lv_plain_all)}), with float32 weights '
+          f'{b6_plain:.4f} ms, raw heads {raw_plain:.4f} ms '
+          f'({_spread(raw_plain_all)}); cuDNN P-Net {lv_lib:.4f} ms '
+          f'({_spread(lv_lib_all)}; host {lv_lib_host:.4f}), from NHWC '
+          f'pixels {b7_lib:.4f} ms ({_spread(b7_lib_all)}); the '
+          f"whole-pyramid kernel's share for this level's operations "
+          f'{share:.4f} ms ({flops0 / flops_all:.3f} of {flops_all:.4e} '
+          f'flop); bound {lv_bound:.4f} ms ({flops0:.4e} flop at the bf16 '
+          f'tensor-core rate, {bytes0:.4e} bytes), {b6_bound:.4f} ms at '
+          'the FP32 rate that float32 weights need')
+
+    scenes16 = torch.from_numpy(images[16:32]).cuda()
+    cascades = {'flax': FaceDetector(image_shape=SCENE, device='cuda',
+                                     pnet_impl='flax').backend_for(SCENE),
+                'flat': flat, 'pyramid': det}
+    cascade_ms = {}
+    for name in ('flax', 'flat', 'pyramid', 'pyramid', 'flat', 'flax'):
+        ms, _ = cuda_ms(lambda: cascades[name]._detect(scenes16), 5, 2)
+        cascade_ms.setdefault(name, []).append(ms)
+    print('  cascade alone per batch of 16 scenes, host included (in turns '
+          'flax, flat, pyramid, pyramid, flat, flax): ' + '; '.join(
+              f"'{name}' {_spread(times)} ms"
+              for name, times in cascade_ms.items()))
+
+    source = 'facenet_tpu_torch/csrc/pnet_level.cu'
+    jax_pnet = 'facenet_tpu/detectors/mtcnn/pallas_pnet.py'
+    return [{
+        'name': 'stem_fused',
+        'route': 'cuda',
+        'source': 'facenet_tpu_torch/csrc/stem_fused.cu',
+        'replaces': 'facenet_tpu/ops/pallas_stem.py:115',
+        'launches': counts_a['stem_fused'],
+        'max_abs_err': max(stem_errs),
+        'ms': b5_ms,
+        'plain_ms': b5_plain,
+        'bound_ms': b5_bound,
+        'bound_by': 'operations' if b5_ops >= b5_bytes else 'bytes',
+        'library_ms': b5_lib,
+    }, {
+        'name': 'pnet_flat',
+        'route': 'cuda',
+        'source': source,
+        'replaces': f'{jax_pnet}:421',
+        'launches': counts_b['pnet_flat'],
+        'max_abs_err': level_errs['pnet_flat'],
+        'ms': b4_ms,
+        'plain_ms': lv_plain,
+        'bound_ms': lv_bound,
+        'bound_by': 'operations' if lv_ops >= lv_bytes else 'bytes',
+        'library_ms': lv_lib,
+    }, {
+        'name': 'pnet_level',
+        'route': 'cuda',
+        'source': source,
+        'replaces': f'{jax_pnet}:163',
+        'launches': counts_c['pnet_level'],
+        'max_abs_err': level_errs['pnet_level'],
+        'ms': b6_ms,
+        'plain_ms': b6_plain,
+        'bound_ms': b6_bound,
+        'bound_by': 'operations' if b6_ops >= lv_bytes else 'bytes',
+        'library_ms': lv_lib,
+    }, {
+        'name': 'pnet_trunk_nhwc',
+        'route': 'cuda',
+        'source': source,
+        'replaces': 'tools/try_pnet_v3.py:115',
+        'launches': counts_d['pnet_trunk_nhwc'],
+        'max_abs_err': level_errs['pnet_trunk_nhwc'],
+        'ms': b7_ms,
+        'plain_ms': raw_plain,
+        'bound_ms': lv_bound,
+        'bound_by': 'operations' if lv_ops >= lv_bytes else 'bytes',
+        'library_ms': b7_lib,
+    }]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -654,23 +1007,23 @@ def main():
     from facenet_tpu_torch.models.inception_resnet_v1 import (
         InceptionResnetV1, init_variables)
     from facenet_tpu_torch.detectors.mtcnn import pnet
-    from facenet_tpu_torch.ops import cuda_build, pair_counts, warp
+    from facenet_tpu_torch.ops import cuda_build, pair_counts, stem, warp
+    from facenet_tpu_torch.utils.timing import card_line, cuda_ms
+    from facenet_tpu_torch.utils.timing import spread as _spread
 
     started = time.monotonic()
     rng = np.random.default_rng(0)
 
     # 1. the card
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi)
     print(f'torch {torch.__version__} cuda {torch.version.cuda} '
           f'python {sys.version.split()[0]}')
 
     # 2. build every kernel, one nvcc each, all started together
     t0 = time.monotonic()
-    kernels = (pair_counts.KERNEL, warp.KERNEL, pnet.KERNEL)
+    kernels = (pair_counts.KERNEL, warp.KERNEL, pnet.KERNEL,
+               pnet.LEVEL_KERNEL, stem.KERNEL)
     libs = dict(zip((k.name for k in kernels), cuda_build.build_all(kernels)))
     print(f'[2] built {", ".join(k.library_path().name for k in kernels)} '
           f'in {time.monotonic() - t0:.1f} s')
@@ -746,8 +1099,7 @@ def main():
           f'{counts}')
     require(embs.shape == (1040, 512) and np.isfinite(embs).all(),
             'bad main-path embeddings')
-    require(counts == {'pair_below_counts': 30, 'dense_warp': 0,
-                       'pnet_pyramid': 0},
+    require(counts == only(pair_below_counts=30),
             f'expected 30 pair_below_counts launches alone, got {counts}')
     for crit, values in report.dict.items():
         require(all(np.isfinite(v) for v in values.values()),
@@ -829,10 +1181,12 @@ def main():
         'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes',
         'library_ms': library_ms,
     }
-    detection = detection_phases(rng, libs, bundle)
+    context, detection = detection_phases(rng, libs, bundle)
+    context.update(smi=smi, variables=variables)
+    slice3 = slice3_phases(rng, libs, context)
 
     print(f'total {time.monotonic() - started:.1f} s')
-    print(json.dumps({'kernels': [pair_entry] + detection}))
+    print(json.dumps({'kernels': [pair_entry] + detection + slice3}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -16,7 +16,8 @@ Stage protocol (thresholds and NMS from the MTCNN paper, arXiv:1604.02878):
   5 landmarks.
 
 The P-Net runs over the whole pyramid in one launch of the B3 kernel
-(`pnet.pnet_forward_pyramid`) by default.
+(`pnet.pnet_forward_pyramid`) by default; `pnet_impl='flat'` runs it level
+by level through the B4 kernel (`pnet.pnet_forward_flat`).
 """
 
 from __future__ import annotations
@@ -144,12 +145,14 @@ class MTCNN:
         arrays (`pretrained.load_bundled`); None initializes the networks
         at random from `seed`
     :param pnet_impl: 'auto' (= 'pyramid') runs the whole pyramid through
-        the B3 kernel in one launch; 'flax' runs the `PNet` module level by
-        level through cuDNN. The JAX package's 'auto' picks its XLA convs
-        for throughput at batch 64, a choice measured on a TPU v5e that
-        says nothing of this card. Its 'flat', 'pyramid-dots' and
-        'pyramid-skip' are per-level and timing-probe variants of the TPU
-        kernel (B4 and its experiments) that are not ported.
+        the B3 kernel in one launch; 'flat' runs the B4 kernel once per
+        level on that level's channel planes; 'flax' runs the `PNet` module
+        level by level through cuDNN. The JAX package's 'auto' picks its
+        XLA convs for throughput at batch 64, a choice measured on a TPU
+        v5e that says nothing of this card. Its 'pyramid-dots' and
+        'pyramid-skip' are an assembly experiment and a wrong-numerics
+        timing probe inside the TPU version of B3, not kernels of their
+        own, and raise here.
     :param device: torch device; None means cuda (raises without a GPU)
     """
 
@@ -164,13 +167,13 @@ class MTCNN:
                 f'unknown pnet_box_convention {pnet_box_convention!r}')
         if pnet_impl == 'auto':
             pnet_impl = 'pyramid'
-        if pnet_impl in ('flat', 'pyramid-dots', 'pyramid-skip'):
+        if pnet_impl in ('pyramid-dots', 'pyramid-skip'):
             raise NotImplementedError(
-                f"pnet_impl {pnet_impl!r} is not ported: 'flat' is the "
-                'per-level TPU kernel (B4, ROADMAP queue B) and '
-                "'pyramid-dots'/'pyramid-skip' are the JAX package's timing "
-                "probes; use 'pyramid' or 'flax'")
-        if pnet_impl not in ('pyramid', 'flax'):
+                f"pnet_impl {pnet_impl!r} is not ported: 'pyramid-dots' and "
+                "'pyramid-skip' are probes inside the TPU version of the "
+                "whole-pyramid kernel (B3), not kernels of their own; use "
+                "'pyramid', 'flat' or 'flax'")
+        if pnet_impl not in ('pyramid', 'flat', 'flax'):
             raise ValueError(f'unknown pnet_impl {pnet_impl!r}')
         self.pnet_impl = pnet_impl
         self.pnet_box_convention = pnet_box_convention
@@ -255,6 +258,11 @@ class MTCNN:
             torch.bfloat16))
         if self.pnet_impl == 'pyramid':
             heads = pnet_kernel.pnet_forward_pyramid(self.pnet, levels)
+        elif self.pnet_impl == 'flat':
+            # the level's planes as they lie: the pitch is the true width
+            heads = [pnet_kernel.pnet_forward_flat(
+                self.pnet, level.view(b, 3, -1), *level.shape[2:],
+                level.shape[3]) for level in levels]
         else:
             heads = [self.pnet.forward_nchw(level) for level in levels]
         per_level = [self._pnet_select(probs, reg, level)

@@ -18,7 +18,9 @@ transform [H/2, W/2, 12].
 Weights and biases are stored in the serving dtype (bf16 by default), the
 residual scales are rounded to that dtype, the bottleneck matmul accumulates
 in float32, and activations run NCHW in channels_last memory. The
-convolutions are cuDNN work through ``F.conv2d``.
+convolutions are cuDNN work through ``F.conv2d``; with ``stem='fused'`` the
+prefix up to the first max pool runs as one hand-written kernel
+(`ops.stem.stem_forward`).
 """
 
 from __future__ import annotations
@@ -31,6 +33,13 @@ from facenet_tpu_torch.device import resolve_device
 from facenet_tpu_torch.models.inception_resnet_v1 import (BN_EPS,
                                                            check_input_config)
 from facenet_tpu_torch.ops.preprocessing import image_processing
+from facenet_tpu_torch.ops.stem import stem_forward
+
+# entries an int8 quantizer must leave in bf16 when the fused stem is to
+# run: the kernel takes bf16 weights
+STEM_SKIP = ('Bottleneck', 'Conv2d_1a_s2d', 'Conv2d_1a_3x3',
+             'Conv2d_2a_3x3', 'Conv2d_2b_3x3')
+STEMS = ('cudnn', 'fused')
 
 
 def _fold(tree_p, tree_s):
@@ -198,15 +207,15 @@ def _scale(value, dtype):
     return float(torch.tensor(float(value), dtype=dtype))
 
 
-def fast_forward(params, cfg, images, image_size=160, normalization=0,
-                 dtype=torch.bfloat16, normalize=True):
-    """Fused inference forward: uint8/float NHWC images -> [B, D] float32.
+def _check_stem(stem):
+    if stem not in STEMS:
+        raise ValueError(f'unknown stem {stem!r}')
 
-    Same contract as InceptionResnetV1.forward: in-model preprocessing,
-    L2-normalized float32 output (eps 1e-10) unless ``normalize=False``.
-    """
-    x = image_processing(images, image_size, normalization, dtype=dtype)
 
+def stem_prefix(params, x):
+    """conv1 (space-to-depth form when the size allows), conv2a, conv2b and
+    the 3x3/s2 max pool through ``F.conv2d``: normalized NHWC [B, H, W, 3]
+    -> NCHW [B, 64, H', W'] in channels_last memory."""
     b, h, w, c = x.shape
     if 'Conv2d_1a_s2d' in params and h % 2 == 0 and w % 2 == 0:
         xs = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
@@ -216,7 +225,29 @@ def fast_forward(params, cfg, images, image_size=160, normalization=0,
         x = _crelu(x.permute(0, 3, 1, 2), params['Conv2d_1a_3x3'], 2, 'VALID')
     x = _crelu(x, params['Conv2d_2a_3x3'], 1, 'VALID')
     x = _crelu(x, params['Conv2d_2b_3x3'], 1, 'VALID')
-    x = F.max_pool2d(x, 3, 2)
+    return F.max_pool2d(x, 3, 2)
+
+
+def fast_forward(params, cfg, images, image_size=160, normalization=0,
+                 dtype=torch.bfloat16, normalize=True, stem='cudnn'):
+    """Fused inference forward: uint8/float NHWC images -> [B, D] float32.
+
+    Same contract as InceptionResnetV1.forward: in-model preprocessing,
+    L2-normalized float32 output (eps 1e-10) unless ``normalize=False``.
+
+    :param stem: 'cudnn' (default) runs the conv1/2a/2b/pool prefix through
+        ``F.conv2d``; 'fused' runs it as one kernel (`ops.stem`; 160x160
+        only, bfloat16 only, needs the space-to-depth stem params)
+    """
+    _check_stem(stem)
+    x = image_processing(images, image_size, normalization, dtype=dtype)
+
+    if stem == 'fused':
+        # raises ValueError on params without the s2d stem, on a size other
+        # than 160x160 and on a dtype other than bfloat16
+        x = stem_forward(params, x)
+    else:
+        x = stem_prefix(params, x)
     x = _crelu(x, params['Conv2d_3b_1x1'], 1, 'VALID')
     x = _crelu(x, params['Conv2d_4a_3x3'], 1, 'VALID')
     x = _crelu(x, params['Conv2d_4b_3x3'], 2, 'VALID')
@@ -283,11 +314,16 @@ def fast_forward(params, cfg, images, image_size=160, normalization=0,
 
 
 class FastEmbedder:
-    """Fused forward bound to one parameter set on one device."""
+    """Fused forward bound to one parameter set on one device.
+
+    :param stem: 'cudnn' or 'fused', see `fast_forward`
+    """
 
     def __init__(self, variables, config=None, image_size=160,
                  normalization=0, dtype=torch.bfloat16, normalize=True,
-                 device=None):
+                 device=None, stem='cudnn'):
+        _check_stem(stem)
+        self.stem = stem
         self.device = resolve_device(device)
         self.dtype = dtype
         self.params, self.cfg = build_fast_params(variables, config, dtype,
@@ -303,4 +339,5 @@ class FastEmbedder:
         with torch.inference_mode():
             return fast_forward(self.params, self.cfg, images,
                                 self.image_size, self.normalization,
-                                self.dtype, normalize=self.normalize)
+                                self.dtype, normalize=self.normalize,
+                                stem=self.stem)

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one source under ``facenet_tpu_torch/csrc/`` with a plain C
-launch function. `CudaKernel.load` compiles it at first use with ``nvcc``
-for sm_90a into a shared library under ``facenet_tpu_torch/_build/`` (named
-by the source's hash, so an edited source builds anew) and binds it with
+Each kernel is one source under ``facenet_tpu_torch/csrc/`` with plain C
+launch functions; sources may share headers (``*.cuh``) of that directory.
+`CudaKernel.load` compiles it at first use with ``nvcc`` for sm_90a into a
+shared library under ``facenet_tpu_torch/_build/`` (named by the hash of the
+source and its headers, so an edit to either builds anew) and binds it with
 ctypes. `build_all` starts one ``nvcc`` per source at once and waits for all
 of them, so a run that needs every kernel pays for the slowest build only.
 """
@@ -20,7 +21,8 @@ _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / 'csrc'
 BUILD_DIR = _PACKAGE / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+              '-I', str(CSRC))
 
 
 def nvcc():
@@ -40,10 +42,13 @@ class CudaKernel:
     :param source: file name under ``csrc/``
     :param signatures: {C function name: list of ctypes argument types};
         every function returns an int (a cudaError_t, 0 on success)
+    :param headers: file names under ``csrc/`` that the source includes;
+        they enter the library's hash
     """
 
-    def __init__(self, source, signatures):
+    def __init__(self, source, signatures, headers=()):
         self.source = CSRC / source
+        self.headers = tuple(CSRC / header for header in headers)
         self.signatures = dict(signatures)
         self._library = None
         self._proc = None
@@ -54,8 +59,12 @@ class CudaKernel:
         return self.source.stem
 
     def library_path(self):
-        """The shared library for the current source (named by its hash)."""
-        digest = hashlib.sha1(self.source.read_bytes()).hexdigest()[:12]
+        """The shared library for the current source and headers (named
+        by their hash)."""
+        content = hashlib.sha1()
+        for path in (self.source, *self.headers):
+            content.update(path.read_bytes())
+        digest = content.hexdigest()[:12]
         return BUILD_DIR / f'lib{self.name}-{digest}.so'
 
     def start(self):

@@ -16,7 +16,15 @@ import torch
 
 from facenet_tpu_torch.detectors import pretrained
 from facenet_tpu_torch.detectors.mtcnn import networks, pnet
-from facenet_tpu_torch.ops import pair_counts, warp
+from facenet_tpu_torch.models import irv1_fast
+from facenet_tpu_torch.models.inception_resnet_v1 import init_variables
+from facenet_tpu_torch.ops import pair_counts, stem, warp
+from facenet_tpu_torch.ops.preprocessing import image_processing
+from facenet_tpu_torch.tools import try_pnet_v3
+
+TINY = {'block35': {'repeat': 1}, 'block17': {'repeat': 1},
+        'block8_1': {'repeat': 1}, 'output': {'size': 32}}
+LEVEL_SHAPES = [(24, 100), (61, 83), (40, 129), (12, 12)]
 
 
 def _gpu():
@@ -65,6 +73,88 @@ def test_wrappers_take_the_plain_version_on_cpu(bundled_pnet):
         assert torch.equal(p, pw) and torch.equal(r, rw)
     assert (warp.dense_warp.launches,
             pnet.pnet_forward_pyramid.launches) == before
+
+
+def _flat_planes(rng, sh, true_sw, b=2):
+    """bf16 planes [b, 3, sh * sw] at a pitch rounded up to 128, with
+    N(0, 3) garbage past true_sw, and the clean [b, 3, sh, true_sw] level."""
+    sw = -(-true_sw // 128) * 128
+    level = _levels(rng, [(sh, true_sw)], b)[0]
+    pad = torch.from_numpy(rng.normal(0, 3, (b, 3, sh, sw))
+                           .astype(np.float32)).to(torch.bfloat16)
+    pad[..., :true_sw] = level
+    return pad.reshape(b, 3, sh * sw), sw, level
+
+
+@pytest.mark.parametrize('shape', LEVEL_SHAPES)
+def test_level_wrappers_take_the_plain_version_on_cpu(bundled_pnet, shape):
+    """B4, B6 and B7 on CPU tensors: the plain version, no launch counted;
+    B4 is blind to what lies past true_sw; B7's heads softmax to B4's
+    probabilities."""
+    sh, true_sw = shape
+    rng = np.random.RandomState(4)
+    planes, sw, level = _flat_planes(rng, sh, true_sw)
+    counters = (pnet.pnet_forward_flat, pnet.pnet_forward_level,
+                try_pnet_v3.pnet_trunk_nhwc)
+    before = [fn.launches for fn in counters]
+    p4, r4 = pnet.pnet_forward_flat(bundled_pnet, planes, sh, sw, true_sw)
+    (p3, r3), = pnet.pnet_forward_pyramid_plain(bundled_pnet, [level])
+    assert torch.equal(p4, p3) and torch.equal(r4, r3)
+    assert p4.shape == (2, *pnet.out_geometry(sh, true_sw))
+
+    unrounded = pnet.pack_level_weights(bundled_pnet)
+    assert not torch.equal(unrounded, pnet.pack_weights(bundled_pnet))
+    p6, r6 = pnet.pnet_forward_level(unrounded, level.float())
+    pw, rw = pnet.level_plain(unrounded, level)
+    assert torch.equal(p6, pw) and torch.equal(r6, rw)
+    assert p6.shape == p4.shape and r6.shape == r4.shape
+
+    z = try_pnet_v3.pnet_trunk_nhwc(level.permute(0, 2, 3, 1),
+                                    pnet.packed_weights(bundled_pnet,
+                                                        level.device))
+    assert z.shape == (*p4.shape, 6)
+    # NHWC input reaches the convolutions in another memory format, so the
+    # sums differ in their last bits
+    assert torch.allclose(torch.softmax(z[..., :2], -1)[..., 1], p4,
+                          atol=2e-3)
+    assert torch.allclose(z[..., 2:], r4, atol=5e-3)
+    assert [fn.launches for fn in counters] == before
+
+
+def test_level_wrappers_raise_on_what_the_kernels_do_not_take(bundled_pnet):
+    planes, sw, level = _flat_planes(np.random.RandomState(5), 24, 100)
+    with pytest.raises(ValueError, match='bfloat16'):
+        pnet.pnet_forward_flat(bundled_pnet, planes.float(), 24, sw, 100)
+    with pytest.raises(ValueError, match='pitch'):
+        pnet.pnet_forward_flat(bundled_pnet, planes, 24, sw, sw + 1)
+    with pytest.raises(ValueError, match='12x12'):
+        pnet.pnet_forward_flat(bundled_pnet,
+                               planes[:, :, :10 * sw].contiguous(), 10, sw,
+                               100)
+    with pytest.raises(ValueError, match='pack_level_weights'):
+        pnet.pnet_forward_level(torch.zeros(7), level)
+    with pytest.raises(ValueError, match='float'):
+        pnet.pnet_forward_level(pnet.pack_level_weights(bundled_pnet),
+                                torch.zeros(1, 3, 24, 24, dtype=torch.uint8))
+    with pytest.raises(ValueError, match='pack_all'):
+        try_pnet_v3.pnet_trunk_nhwc(level.permute(0, 2, 3, 1),
+                                    torch.zeros(7))
+
+
+def test_kernel_library_is_named_by_source_and_headers(tmp_path, monkeypatch):
+    from facenet_tpu_torch.ops import cuda_build
+    monkeypatch.setattr(cuda_build, 'CSRC', tmp_path)
+    (tmp_path / 'k.cu').write_text('#include "h.cuh"\n')
+    (tmp_path / 'h.cuh').write_text('// one\n')
+    kernel = cuda_build.CudaKernel('k.cu', {}, headers=('h.cuh',))
+    first = kernel.library_path().name
+    assert first == kernel.library_path().name
+    (tmp_path / 'h.cuh').write_text('// two\n')
+    assert kernel.library_path().name != first
+    assert pnet.KERNEL.headers and pnet.LEVEL_KERNEL.headers
+    assert all(h.exists() for h in pnet.LEVEL_KERNEL.headers)
+    flags = cuda_build.NVCC_FLAGS
+    assert flags[flags.index('-I') + 1].endswith('csrc')
 
 
 def test_build_all_waits_for_every_build_before_raising():
@@ -147,3 +237,67 @@ def test_pair_below_counts_kernel_matches_plain():
     np.testing.assert_allclose(kern.cumsum(1).cpu().numpy(),
                                plain.cumsum(1).cpu().numpy(),
                                rtol=1e-6, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', LEVEL_SHAPES)
+def test_pnet_level_kernels_match_plain(bundled_pnet, shape):
+    """B4 (pitch rounded up to 128, garbage past true_sw), B6 (float32
+    weights) and B7 (NHWC in, raw heads out) against their plain versions:
+    probs 0.02, reg and raw heads 0.05."""
+    _gpu()
+    sh, true_sw = shape
+    net = bundled_pnet.cuda()
+    planes, sw, level = _flat_planes(np.random.RandomState(6), sh, true_sw,
+                                     b=3)
+    planes, level = planes.cuda(), level.cuda()
+    rounded = pnet.packed_weights(net, level.device)
+    unrounded = pnet.pack_level_weights(net).cuda()
+    nhwc = level.permute(0, 2, 3, 1).contiguous()
+    counters = (pnet.pnet_forward_flat, pnet.pnet_forward_level,
+                try_pnet_v3.pnet_trunk_nhwc)
+    before = [fn.launches for fn in counters]
+    p4, r4 = pnet.pnet_forward_flat(net, planes, sh, sw, true_sw)
+    p6, r6 = pnet.pnet_forward_level(unrounded, level)
+    z7 = try_pnet_v3.pnet_trunk_nhwc(nhwc, rounded)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == [n + 1 for n in before]
+    pw, rw = pnet.level_plain(rounded, level)
+    assert p4.shape == pw.shape and r4.shape == rw.shape
+    assert float((p4 - pw).abs().max()) < 0.02
+    assert float((r4 - rw).abs().max()) < 0.05
+    pw, rw = pnet.level_plain(unrounded, level)
+    assert float((p6 - pw).abs().max()) < 0.02
+    assert float((r6 - rw).abs().max()) < 0.05
+    zw = pnet.level_plain(rounded, level, raw=True)
+    assert z7.shape == zw.shape
+    assert float((z7 - zw).abs().max()) < 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('batch', [1, 5])
+def test_stem_fused_kernel_matches_plain(batch):
+    """B5 against its plain version on the first three convs of a
+    random-weight IRv1, uint8 noise and the constant images 0 and 255: max
+    |d| / max |ref| <= 0.01, compared through NCHW indexing."""
+    _gpu()
+    params, _ = irv1_fast.build_fast_params(init_variables(TINY, seed=0), TINY,
+                                            device='cuda')
+    rng = np.random.RandomState(7)
+    images = rng.randint(0, 256, (batch, 160, 160, 3), dtype=np.uint8)
+    if batch > 2:
+        images[0], images[1] = 0, 255
+    x = image_processing(torch.from_numpy(images).cuda(), 160, 0,
+                         dtype=torch.bfloat16)
+    before = stem.stem_forward.launches
+    got = stem.stem_forward(params, x)
+    torch.cuda.synchronize()
+    assert stem.stem_forward.launches == before + 1
+    want = stem.stem_forward_plain(params, x)
+    assert tuple(got.shape) == (batch, 64, 37, 37)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    scale = float(want.float().abs().max())
+    assert scale > 0
+    assert float((got.float() - want.float()).abs().max()) <= 0.01 * scale
+    with pytest.raises(ValueError, match='contiguous'):
+        stem.stem_forward(params, x.permute(0, 2, 1, 3))

@@ -24,7 +24,20 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m in ('jax', 'flax') or m.startswith(('jax.', 'flax.'))
              or m == 'facenet_tpu' or m.startswith('facenet_tpu.'))
-print(json.dumps({'count': len(names), 'bad': bad}))
+print(json.dumps({'count': len(names), 'bad': bad, 'names': names}))
+"""
+
+TOOLS = ('try_pnet_v3', 'try_pallas_pnet', 'try_stem_flat',
+         'time_stem_serving', 'time_cascade_ab')
+
+_TOOL = """
+import runpy, sys
+sys.argv = ['{name}', '--device', 'cpu']
+runpy.run_module('facenet_tpu_torch.tools.{name}', run_name='__main__')
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'flax', 'facenet_tpu'))
+assert not bad, bad
+print('TOOL-OK')
 """
 
 
@@ -40,6 +53,26 @@ def test_port_imports_no_jax_and_no_facenet_tpu():
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result['count'] >= 15
     assert result['bad'] == []
+    for name in ('ops.stem', 'ops.cuda_build', 'utils.timing',
+                 'detectors.mtcnn.pnet', 'models.irv1_fast', 'tools',
+                 *(f'tools.{tool}' for tool in TOOLS)):
+        assert f'facenet_tpu_torch.{name}' in result['names'], name
+
+
+@pytest.mark.parametrize('tool', TOOLS)
+def test_tool_runs_its_cpu_half_without_jax(tool):
+    """`python -m facenet_tpu_torch.tools.<tool> --device cpu` runs the
+    equivalence half on the plain versions and imports no JAX; without
+    `--device cpu` and without a GPU it raises."""
+    proc = _run(['-c', _TOOL.format(name=tool)], ROOT)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().endswith('TOOL-OK')
+    if torch.cuda.is_available():
+        return
+    import importlib
+    module = importlib.import_module(f'facenet_tpu_torch.tools.{tool}')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        module.main([])
 
 
 def test_facenet_without_device_raises_on_cpu_only_box(tmp_path):

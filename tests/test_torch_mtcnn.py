@@ -196,9 +196,14 @@ def test_cascade_flax_impl_and_unported_impls(params):
     b = cascade.MTCNN(pnet_impl='flax', **kw).detect_batch(img[None])
     np.testing.assert_array_equal(a['valid'], b['valid'])
     assert np.abs(a['boxes'][a['valid']] - b['boxes'][b['valid']]).max() < 1.5
-    for impl in ('flat', 'pyramid-dots', 'pyramid-skip'):
-        with pytest.raises(NotImplementedError, match='B4'):
+    c = cascade.MTCNN(pnet_impl='flat', **kw).detect_batch(img[None])
+    np.testing.assert_array_equal(a['valid'], c['valid'])
+    assert np.abs(a['boxes'][a['valid']] - c['boxes'][c['valid']]).max() < 1.5
+    for impl in ('pyramid-dots', 'pyramid-skip'):
+        with pytest.raises(NotImplementedError, match='probes inside.*B3'):
             cascade.MTCNN(pnet_impl=impl, **kw)
+    with pytest.raises(ValueError, match='unknown pnet_impl'):
+        cascade.MTCNN(pnet_impl='flat-interpret', **kw)
     with pytest.raises(ValueError, match='letterbox'):
         cascade.MTCNN(**kw).detect_batch(np.zeros((1, 96, 96, 3), np.uint8))
 
