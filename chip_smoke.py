@@ -14,6 +14,10 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      N=1000/D=17: cumulative counts agree to rtol 1e-6, beyond the weight
      of pairs whose float64 similarity lies within 1e-6 of a cutoff
      (float32 sums in another order may put exactly those on either side);
+     then the kernel's product itself (3xTF32 on the tensor cores, through
+     pair_similarities) against the float64 product at N=1024, D=512 and
+     D=17, pairs at s ~ 0.5 and duplicated rows included: max |s - s64| <=
+     5e-7, the float32 torch.matmul's figure beside it;
   4. full-width Inception-ResNet-v1 (default config, 512-d, random weights
      from init_variables(seed=0)) served by FaceNet in bf16 at batch 128:
      finite unit-norm embeddings, min cosine >= 0.995 against the unfused
@@ -25,10 +29,13 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      well-separated embeddings equals the CPU report to 1e-6;
   6. at the reference validation's sweep shape (N=23,840, D=512, T=100):
      the same kernel-vs-plain check, then the times of the kernel, the
-     plain version, and the float32 torch.matmul of the same product (a
-     yardstick for the product alone), beside the bound; then the wall
-     time of a whole 10-fold validation at the reference eval size
-     (26,489 x 512, synthetic clustered embeddings);
+     plain version, and the float32 torch.matmul of the full N x N product
+     (twice the pairs, nothing binned: a yardstick for the product alone),
+     beside both bounds (the FP32 pipes; three TF32 products on the tensor
+     cores, which the kernel is held to); the kernel again at T=1 (the
+     test folds' call) and at D=32 (the epilogue with almost no main loop);
+     then the wall time of a whole 10-fold validation at the reference
+     eval size (26,489 x 512, synthetic clustered embeddings);
   7. ptxas registers, shared memory and spills of the two detection
      kernels;
   8. the dense warp (B2) kernel vs its plain version: 32 crops 240 -> 160
@@ -90,7 +97,8 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      as the device's busy time under torch.profiler; B4, B6 and B7 at level 0,
      batch 16, beside the plain version, the cuDNN P-Net on that level and
      the whole-pyramid kernel's share for that level's operations; the
-     cascade alone under 'flax', 'flat' and 'pyramid'.
+     cascade alone under 'flax', 'flat' and 'pyramid', host included and
+     as the device's busy time.
 
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -108,6 +116,7 @@ import numpy as np
 
 H100_FP32_FLOPS = 67e12     # FP32 outside the tensor cores, H100 SXM
 H100_BF16_FLOPS = 989e12    # dense bf16 tensor cores, H100 SXM
+H100_TF32_FLOPS = 495e12    # dense TF32 tensor cores, H100 SXM
 H100_HBM_BYTES = 3.35e12    # HBM3 bytes/s, H100 SXM
 SCENE = (480, 640)          # the cascade's default geometry
 ROTATE = 6                  # B2 input copies: 6 x 22 MB, past the 50 MB L2
@@ -184,6 +193,25 @@ def prepared(pair_counts, emb, labels, metric, t=100):
     hi = 4.0 if metric == 0 else np.pi
     return pair_counts.prepare(torch.from_numpy(emb).cuda(), labels,
                                np.linspace(0, hi, t), metric)
+
+
+def pair_split_times(pair_counts, emb, labels, t=100):
+    """B1's time (ms, device) on unit-norm `emb` at three shapes that split
+    it between main loop and epilogue: (D, T) as given; (D, 1), the test
+    folds' call, where every pair lands on one of two bins; (32, T), the
+    epilogue with almost no main loop. Returns {label: (median, windows)}."""
+    import torch
+
+    from facenet_tpu_torch.utils.timing import cuda_ms
+    narrow = emb[:, :32] / np.linalg.norm(emb[:, :32], axis=1, keepdims=True)
+    cases = {
+        f'D={emb.shape[1]} T={t}': prepared(pair_counts, emb, labels, 0, t),
+        f'D={emb.shape[1]} T=1': pair_counts.prepare(
+            torch.from_numpy(emb).cuda(), labels, np.array([1.0]), 0),
+        f'D=32 T={t}': prepared(pair_counts, narrow.astype(np.float32),
+                                labels, 0, t)}
+    return {label: cuda_ms(lambda: pair_counts.pair_histogram(inputs), reps=5)
+            for label, inputs in cases.items()}
 
 
 def synthetic_batches(rng, n_classes, per_class, batch, size=160):
@@ -337,30 +365,10 @@ def compare_pnet(pnet, net, levels, label):
     return dp, dr
 
 
-def device_busy(fn, calls=1):
-    """torch.profiler over `calls` calls of fn(): (device busy ms per call,
-    wall ms per call, kernel rows). The busy time is the sum of the kernels'
-    own durations, so it does not depend on how fast the host issues them."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / calls
-    return busy_ms, wall_ms, rows
-
-
 def device_breakdown(fn, top=12):
     """torch.profiler over one call of fn(): kernel time by name and the
     device's busy share of the call's wall time."""
+    from facenet_tpu_torch.utils.timing import device_busy
     busy_ms, wall_ms, rows = device_busy(fn)
     if busy_ms <= 0:
         print('  profiler: no device time recorded (not measured)')
@@ -705,7 +713,8 @@ def slice3_phases(rng, libs, context):
     from facenet_tpu_torch.ops import stem
     from facenet_tpu_torch.ops.preprocessing import image_processing
     from facenet_tpu_torch.tools import try_pallas_pnet, try_pnet_v3
-    from facenet_tpu_torch.utils.timing import cuda_ms, device_ms
+    from facenet_tpu_torch.utils.timing import (cuda_ms, device_busy,
+                                                 device_ms)
     from facenet_tpu_torch.utils.timing import spread as _spread
 
     smi = context['smi']
@@ -936,10 +945,15 @@ def slice3_phases(rng, libs, context):
     for name in ('flax', 'flat', 'pyramid', 'pyramid', 'flat', 'flax'):
         ms, _ = cuda_ms(lambda: cascades[name]._detect(scenes16), 5, 2)
         cascade_ms.setdefault(name, []).append(ms)
+    cascade_busy = {name: device_busy(
+        lambda: cascades[name]._detect(scenes16), 3)[0] for name in cascades}
     print('  cascade alone per batch of 16 scenes, host included (in turns '
           'flax, flat, pyramid, pyramid, flat, flax): ' + '; '.join(
               f"'{name}' {_spread(times)} ms"
-              for name, times in cascade_ms.items()))
+              for name, times in cascade_ms.items())
+          + '; device busy time alone (torch.profiler, the sum of the '
+          "kernels' durations over 3 batches): " + '; '.join(
+              f"'{name}' {ms:.3f} ms" for name, ms in cascade_busy.items()))
 
     source = 'facenet_tpu_torch/csrc/pnet_level.cu'
     jax_pnet = 'facenet_tpu/detectors/mtcnn/pallas_pnet.py'
@@ -1048,6 +1062,27 @@ def main():
         pair_counts, prepared(pair_counts, emb, labels, 0),
         'metric=0'))
 
+    for d in (512, 17):
+        emb, _ = clustered(rng, 32, 32, d, 1.0)           # pairs at s ~ 0.5
+        emb[1::7] = emb[0::7][:emb[1::7].shape[0]]        # and at s = 1
+        x = torch.from_numpy(emb).cuda()
+        got = pair_counts.pair_similarities(x)
+        torch.cuda.synchronize()
+        s64 = torch.clamp(x.double() @ x.double().T, -1.0, 1.0)
+        allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            f32 = torch.clamp(x @ x.T, -1.0, 1.0)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+        err = float((got.double() - s64).abs().max())
+        print(f'  N={emb.shape[0]} D={d} product: max |s - s64| kernel '
+              f'(3xTF32) {err:.3e}, float32 torch.matmul '
+              f'{float((f32.double() - s64).abs().max()):.3e}; max s '
+              f'{float(got.max()):.7f}')
+        require(err <= 5e-7 and float(got.max()) <= 1.0,
+                f'3xTF32 product off float64 by {err} at D={d}')
+
     # 4. full-width serving
     print('[4] full-width IRv1 serving')
     variables = init_variables(seed=0)
@@ -1146,13 +1181,18 @@ def main():
         torch.backends.cuda.matmul.allow_tf32 = allow_tf32
     flops = n * (n - 1) / 2 * 2 * d
     nbytes = n * d * 4 + n * (4 + 8 + 8) + t * 4 + 2 * (t + 1) * 8
-    ops_ms = flops / H100_FP32_FLOPS * 1e3
+    fp32_ms = flops / H100_FP32_FLOPS * 1e3
+    ops_ms = 3 * flops / H100_TF32_FLOPS * 1e3     # what the kernel runs
     bytes_ms = nbytes / H100_HBM_BYTES * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     print(f'  kernel {kern_ms:.3f} ms ({_spread(kern_all)}), plain '
-          f'{plain_ms:.3f} ms ({_spread(plain_all)}), f32 matmul '
-          f'{library_ms:.3f} ms ({_spread(library_all)}), bound '
-          f'{bound_ms:.3f} ms ({flops:.3e} flop)')
+          f'{plain_ms:.3f} ms ({_spread(plain_all)}), f32 matmul of the '
+          f'full N x N product {library_ms:.3f} ms ({_spread(library_all)}), '
+          f'bound {bound_ms:.3f} ms (3 x {flops:.3e} flop at the TF32 '
+          f'tensor-core rate; {fp32_ms:.3f} ms at the FP32 rate)')
+    for label, (ms, windows) in pair_split_times(pair_counts, emb, labels,
+                                                 t).items():
+        print(f'  kernel at {label}: {ms:.3f} ms ({_spread(windows)})')
 
     # a whole 10-fold validation at the reference eval size, host included
     n = 26489

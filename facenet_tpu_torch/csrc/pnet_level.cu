@@ -1,6 +1,8 @@
 // MTCNN P-Net on ONE pyramid level, three entry points over the tile code of
-// pnet_tile.cuh (the network, its arithmetic and its shared-memory design
-// are described there). One block per (image, 16x16 tile of head cells).
+// pnet_tile_mma.cuh (tensor cores, bf16 weights: B4 and B7) and pnet_tile.cuh
+// (CUDA cores, float32 weights as given: B6); the network, its arithmetic
+// and the shared-memory designs are described there. One block per (image,
+// 16x16 tile of head cells).
 //
 //   pnet_flat_launch (B4) replaces the Pallas TPU kernel
 //     facenet_tpu/detectors/mtcnn/pallas_pnet.py::_make_v3_kernel (entry
@@ -11,8 +13,9 @@
 //     box offsets out.
 //   pnet_level_launch (B6) replaces pallas_pnet.py::_make_kernel (entry
 //     pnet_forward_pallas): contiguous bf16 NCHW [B, 3, sh, sw], softmax in
-//     the kernel. It differs from B4 by its weights alone: the caller packs
-//     them unrounded.
+//     the kernel. Its weights are float32 values that no one rounded to
+//     bf16, which the bf16 tensor-core tile cannot multiply exactly, so it
+//     keeps the CUDA-core tile (bound: the FP32 rate).
 //   pnet_trunk_nhwc_launch (B7) replaces tools/try_pnet_v3.py::make_kernel
 //     (entry pnet_v3): bf16 NHWC pixels [B, sh, sw, 3] read in place through
 //     their strides, the six head outputs before any softmax out,
@@ -22,7 +25,7 @@
 // kernel (a 288x384 level is 0.39 GFLOP per image against 0.66 MB of
 // planes). Nothing leaves the chip between the input patch and the heads.
 
-#include "pnet_tile.cuh"
+#include "pnet_tile_mma.cuh"
 
 namespace {
 
@@ -40,11 +43,12 @@ __device__ __forceinline__ void block_tile(const Grid& g, int* img, int* gy0,
   *gx0 = (tile % g.tiles_x) * TILE;
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 3)
 pnet_flat_kernel(const unsigned short* __restrict__ planes, int sh, int pitch,
-                 int true_sw, Grid g, const float* __restrict__ weights,
+                 int true_sw, Grid g,
+                 const unsigned short* __restrict__ weights,
                  float* __restrict__ probs, float* __restrict__ reg) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   int img, gy0, gx0;
   block_tile(g, &img, &gy0, &gx0);
   TileInput in;
@@ -54,15 +58,15 @@ pnet_flat_kernel(const unsigned short* __restrict__ planes, int sh, int pitch,
   in.stride_x = 1;
   in.sh = sh;
   in.sw = true_sw;
-  pnet_tile<false>(smem, weights, in, gy0, gx0, g.gh, g.gw, probs, reg,
-                   (size_t)img * g.gh * g.gw);
+  tc::pnet_tile_mma<false>(smem, weights, in, gy0, gx0, g.gh, g.gw, probs,
+                           reg, (size_t)img * g.gh * g.gw);
 }
 
 __global__ void __launch_bounds__(THREADS)
 pnet_level_kernel(const unsigned short* __restrict__ x, int sh, int sw, Grid g,
                   const float* __restrict__ weights,
                   float* __restrict__ probs, float* __restrict__ reg) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   int img, gy0, gx0;
   block_tile(g, &img, &gy0, &gx0);
   TileInput in;
@@ -72,15 +76,15 @@ pnet_level_kernel(const unsigned short* __restrict__ x, int sh, int sw, Grid g,
   in.stride_x = 1;
   in.sh = sh;
   in.sw = sw;
-  pnet_tile<false>(smem, weights, in, gy0, gx0, g.gh, g.gw, probs, reg,
-                   (size_t)img * g.gh * g.gw);
+  pnet_tile<false>(reinterpret_cast<float*>(smem), weights, in, gy0, gx0,
+                   g.gh, g.gw, probs, reg, (size_t)img * g.gh * g.gw);
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 3)
 pnet_trunk_nhwc_kernel(const unsigned short* __restrict__ x, int sh, int sw,
-                       Grid g, const float* __restrict__ weights,
+                       Grid g, const unsigned short* __restrict__ weights,
                        float* __restrict__ heads) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   int img, gy0, gx0;
   block_tile(g, &img, &gy0, &gx0);
   TileInput in;
@@ -90,15 +94,16 @@ pnet_trunk_nhwc_kernel(const unsigned short* __restrict__ x, int sh, int sw,
   in.stride_x = 3;
   in.sh = sh;
   in.sw = sw;
-  pnet_tile<true>(smem, weights, in, gy0, gx0, g.gh, g.gw, nullptr, heads,
-                  (size_t)img * g.gh * g.gw);
+  tc::pnet_tile_mma<true>(smem, weights, in, gy0, gx0, g.gh, g.gw, nullptr,
+                          heads, (size_t)img * g.gh * g.gw);
 }
 
 // The head grid and block count of a batch of (sh, sw) levels whose rows
-// are `pitch` elements apart; false when the kernels do not take them.
-bool plan(int batch, int sh, int sw, int pitch, int n_weights, Grid* g,
-          unsigned* blocks) {
-  if (batch < 1 || n_weights != N_WEIGHTS || pitch < sw) return false;
+// are `pitch` elements apart; false when the kernels do not take them
+// (`n_weights` must be the `expected` size of the kernel's packed vector).
+bool plan(int batch, int sh, int sw, int pitch, int n_weights, int expected,
+          Grid* g, unsigned* blocks) {
+  if (batch < 1 || n_weights != expected || pitch < sw) return false;
   g->gh = head_side(sh);
   g->gw = head_side(sw);
   if (g->gh < 1 || g->gw < 1) return false;
@@ -114,30 +119,33 @@ bool plan(int batch, int sh, int sw, int pitch, int n_weights, Grid* g,
 // The shared-memory opt-in applies to the current device only, so it is
 // set on every launch (a cheap host call) rather than once per process.
 template <typename Kernel>
-cudaError_t opt_in(Kernel kernel) {
+cudaError_t opt_in(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace
 
 // Each function launches on `stream` and returns the cudaError_t of the
-// launch (0 on success); weights are the packed float32 vector on the card.
+// launch (0 on success). `weights` is the packed vector on the card: for
+// pnet_flat_launch and pnet_trunk_nhwc_launch the tensor-core tile's
+// (n_weights = tc::N_HALFS 16-bit values, 16-byte aligned), for
+// pnet_level_launch the float32 one (n_weights = N_WEIGHTS).
 
 extern "C" int pnet_flat_launch(const void* planes, int batch, int sh,
-                                int pitch, int true_sw, const float* weights,
+                                int pitch, int true_sw, const void* weights,
                                 int n_weights, float* probs, float* reg,
                                 void* stream) {
   Grid g;
   unsigned blocks;
-  if (!plan(batch, sh, true_sw, pitch, n_weights, &g, &blocks)) {
+  if (!plan(batch, sh, true_sw, pitch, n_weights, tc::N_HALFS, &g, &blocks)) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaError_t err = opt_in(pnet_flat_kernel);
+  const cudaError_t err = opt_in(pnet_flat_kernel, tc::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  pnet_flat_kernel<<<blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+  pnet_flat_kernel<<<blocks, THREADS, tc::SMEM_BYTES, (cudaStream_t)stream>>>(
       static_cast<const unsigned short*>(planes), sh, pitch, true_sw, g,
-      weights, probs, reg);
+      static_cast<const unsigned short*>(weights), probs, reg);
   return (int)cudaGetLastError();
 }
 
@@ -146,10 +154,10 @@ extern "C" int pnet_level_launch(const void* x, int batch, int sh, int sw,
                                  float* probs, float* reg, void* stream) {
   Grid g;
   unsigned blocks;
-  if (!plan(batch, sh, sw, sw, n_weights, &g, &blocks)) {
+  if (!plan(batch, sh, sw, sw, n_weights, N_WEIGHTS, &g, &blocks)) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaError_t err = opt_in(pnet_level_kernel);
+  const cudaError_t err = opt_in(pnet_level_kernel, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   pnet_level_kernel<<<blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       static_cast<const unsigned short*>(x), sh, sw, g, weights, probs, reg);
@@ -157,17 +165,18 @@ extern "C" int pnet_level_launch(const void* x, int batch, int sh, int sw,
 }
 
 extern "C" int pnet_trunk_nhwc_launch(const void* x, int batch, int sh, int sw,
-                                      const float* weights, int n_weights,
+                                      const void* weights, int n_weights,
                                       float* heads, void* stream) {
   Grid g;
   unsigned blocks;
-  if (!plan(batch, sh, sw, sw, n_weights, &g, &blocks)) {
+  if (!plan(batch, sh, sw, sw, n_weights, tc::N_HALFS, &g, &blocks)) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaError_t err = opt_in(pnet_trunk_nhwc_kernel);
+  const cudaError_t err = opt_in(pnet_trunk_nhwc_kernel, tc::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  pnet_trunk_nhwc_kernel<<<blocks, THREADS, SMEM_BYTES,
+  pnet_trunk_nhwc_kernel<<<blocks, THREADS, tc::SMEM_BYTES,
                            (cudaStream_t)stream>>>(
-      static_cast<const unsigned short*>(x), sh, sw, g, weights, heads);
+      static_cast<const unsigned short*>(x), sh, sw, g,
+      static_cast<const unsigned short*>(weights), heads);
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,7 @@
 // Replaces the Pallas TPU kernel
 // facenet_tpu/detectors/mtcnn/pallas_pnet.py::_make_v4_kernel (entry
 // pnet_forward_pyramid). Per level, on bf16 NCHW planes [B, 3, sh, sw], the
-// network of pnet_tile.cuh followed by a 2-way softmax, into probs
+// network of pnet_tile_mma.cuh followed by a 2-way softmax, into probs
 // [B, gh, gw] and reg [B, gh, gw, 4] float32, gh = ceil((sh - 2) / 2) - 4.
 // Arithmetic follows the TPU kernel: bf16 weights and inputs, float32 sums,
 // float32 bias and PReLU, activations rounded to bf16 after each PReLU,
@@ -16,9 +16,10 @@
 // on chip: one block per (image, level, 16x16 tile of head cells), the
 // tiles of all levels decoded from one linear block index through a
 // per-level table passed by value (a __grid_constant__ parameter, indexed
-// in place). What a block does with its tile is pnet_tile.cuh.
+// in place). What a block does with its tile is pnet_tile_mma.cuh: the
+// convs as implicit GEMMs on the tensor cores.
 
-#include "pnet_tile.cuh"
+#include "pnet_tile_mma.cuh"
 
 namespace {
 
@@ -39,10 +40,10 @@ struct Pyramid {
   int n_levels;
 };
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 3)
 pnet_pyramid_kernel(const __grid_constant__ Pyramid pyr,
-                    const float* __restrict__ weights) {
-  extern __shared__ float smem[];
+                    const unsigned short* __restrict__ weights) {
+  extern __shared__ __align__(16) unsigned char smem[];
 
   // ---- which (level, image, tile) this block computes
   const int bid = blockIdx.x;
@@ -62,21 +63,22 @@ pnet_pyramid_kernel(const __grid_constant__ Pyramid pyr,
   in.stride_x = 1;
   in.sh = lv.sh;
   in.sw = lv.sw;
-  pnet_tile<false>(smem, weights, in, gy0, gx0, lv.gh, lv.gw, lv.probs,
-                   lv.reg, (size_t)img * lv.gh * lv.gw);
+  tc::pnet_tile_mma<false>(smem, weights, in, gy0, gx0, lv.gh, lv.gw,
+                           lv.probs, lv.reg, (size_t)img * lv.gh * lv.gw);
 }
 
 }  // namespace
 
 // table: n_levels rows of 7 int64 values (input pointer, probs pointer, reg
-// pointer, sh, sw, gh, gw), in host memory; weights: the packed float32
-// weights on the card. Launches on `stream`; returns the cudaError_t of the
-// launch (0 on success).
+// pointer, sh, sw, gh, gw), in host memory; weights: the tensor-core tile's
+// packed weights on the card (n_weights = tc::N_HALFS 16-bit values, 16-byte
+// aligned). Launches on `stream`; returns the cudaError_t of the launch (0
+// on success).
 extern "C" int pnet_pyramid_launch(const long long* table, int n_levels,
-                                   int batch, const float* weights,
+                                   int batch, const void* weights,
                                    int n_weights, void* stream) {
   if (n_levels < 1 || n_levels > MAX_LEVELS || batch < 1 ||
-      n_weights != N_WEIGHTS) {
+      n_weights != tc::N_HALFS) {
     return (int)cudaErrorInvalidValue;
   }
   Pyramid pyr;
@@ -109,9 +111,10 @@ extern "C" int pnet_pyramid_launch(const long long* table, int n_levels,
   // launch (a cheap host call) rather than once per process
   const cudaError_t err = cudaFuncSetAttribute(
       pnet_pyramid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      tc::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  pnet_pyramid_kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES,
-                        (cudaStream_t)stream>>>(pyr, weights);
+  pnet_pyramid_kernel<<<(unsigned)blocks, THREADS, tc::SMEM_BYTES,
+                        (cudaStream_t)stream>>>(
+      pyr, static_cast<const unsigned short*>(weights));
   return (int)cudaGetLastError();
 }

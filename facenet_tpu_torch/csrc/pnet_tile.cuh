@@ -1,6 +1,10 @@
-// One 16x16 tile of MTCNN P-Net head cells, computed by one thread block:
-// the device code shared by the whole-pyramid kernel (pnet_pyramid.cu) and
-// the one-level kernels (pnet_level.cu).
+// One 16x16 tile of MTCNN P-Net head cells, computed by one thread block on
+// the CUDA cores with the weights as float32 values: the tile code of the
+// one-level entry point that takes unrounded float32 weights
+// (pnet_level.cu::pnet_level_launch, B6). The whole-pyramid kernel and the
+// other one-level kernels (bf16 weights) run the tensor-core tile of
+// pnet_tile_mma.cuh, which shares this header's geometry, input addressing
+// and helpers.
 //
 //   conv3x3 3->10 + PReLU -> 2x2/s2 max pool (flax 'SAME': a ragged high
 //   edge pools a one-element window) -> conv3x3 10->16 + PReLU ->
@@ -13,13 +17,17 @@
 // caller may hand in NCHW planes, planes with a row pitch wider than the
 // image, or NHWC pixels; nothing at or beyond (sh, sw) is read.
 //
-// A block stages its 42x42x3 input patch and the packed weights in shared
-// memory, computes conv1 straight into the 20x20x10 pooled tile (each
-// conv1 cell belongs to exactly one pool window), then the 18x18x16 conv2
-// tile (over the dead input patch), and each thread finishes one head cell
-// from conv2 with its 32 conv3 sums in registers. Weights are read as
-// warp-wide broadcasts. The halo costs 1.56x on the pooled tile and 1.27x
-// on conv2; the CUDA cores do the work in float32, not the tensor cores.
+// What bounds it on the card: operations at the FP32 rate (float32 weights
+// have 24 significant bits; a bf16 mma multiplies 8). A block stages its
+// 42x42x3 input patch and the packed weights in shared memory as float32,
+// computes conv1 straight into the 20x20x10 pooled tile (each conv1 cell
+// belongs to exactly one pool window), then the 18x18x16 conv2 tile (over
+// the dead input patch), and each thread finishes one head cell from conv2
+// with its 32 conv3 sums in registers. Every multiply-add is an FFMA fed by
+// a shared-memory read (weights as warp-wide broadcasts). The halo costs
+// 1.56x on the pooled tile and 1.27x on conv2. A split of each weight into
+// three bf16 values (exact to 24 bits) would let it share the tensor-core
+// tile.
 
 #pragma once
 

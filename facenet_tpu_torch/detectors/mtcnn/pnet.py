@@ -9,9 +9,11 @@ over every level of an image pyramid in one launch.
 here: `pnet_forward_flat` (B4, replaces ``pallas_pnet.py::_make_v3_kernel``)
 on planes whose rows may be wider than the image, and `pnet_forward_level`
 (B6, replaces ``pallas_pnet.py::_make_kernel``) on NCHW input with weights
-that were not rounded to bf16. Its third entry point, on NHWC pixels, has
-its wrapper in ``facenet_tpu_torch/tools/try_pnet_v3.py``. All of them run
-the tile code of ``csrc/pnet_tile.cuh``.
+that were not rounded to bf16. Its third entry point, on NHWC pixels (B7),
+has its wrapper in ``facenet_tpu_torch/tools/try_pnet_v3.py``. B3, B4 and B7
+run the tensor-core tile of ``csrc/pnet_tile_mma.cuh`` (each conv an
+implicit GEMM on ``mma.sync``, bf16 weights); B6 keeps the CUDA-core tile of
+``csrc/pnet_tile.cuh``, which multiplies float32 weights as they are.
 
 On CUDA tensors a wrapper launches its kernel, or raises; on CPU tensors it
 runs the plain version, `level_plain`, which repeats the kernels'
@@ -22,7 +24,11 @@ The kernels take their weights packed into one float32 vector
 kernels as [ci][ky][kx][co], rounded to bf16 unless the caller asks
 otherwise, biases and PReLU slopes in float32, each block 16-float aligned
 for the kernels' vector loads. The offsets mirror the constants of
-``csrc/pnet_tile.cuh``.
+``csrc/pnet_tile.cuh``. That vector is what the plain version and B6 read.
+The tensor-core tile reads a second form of it (`pack_mma`; cached on the
+vector by `mma_weights`): the bf16 kernels in the order the ``mma.sync``
+fragments load them, then biases, slopes and head weights in float32; its
+offsets mirror ``csrc/pnet_tile_mma.cuh``.
 """
 
 from __future__ import annotations
@@ -34,9 +40,10 @@ import torch.nn.functional as F
 
 from facenet_tpu_torch.detectors.mtcnn.networks import max_pool_same
 from facenet_tpu_torch.ops.cuda_build import CudaKernel, check
+from facenet_tpu_torch.ops.stem import depth_steps
 
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
-_HEADERS = ('pnet_tile.cuh',)
+_HEADERS = ('pnet_tile.cuh', 'pnet_tile_mma.cuh')
 KERNEL = CudaKernel('pnet_pyramid.cu', {
     'pnet_pyramid_launch': [_ptr, _i32, _i32, _ptr, _i32, _ptr]}, _HEADERS)
 LEVEL_KERNEL = CudaKernel('pnet_level.cu', {
@@ -52,6 +59,14 @@ MAX_LEVELS = 24
 OFFSETS = {'w1': 0, 'b1': 272, 'a1': 284, 'w2': 296, 'b2': 1736, 'a2': 1752,
            'w3': 1768, 'b3': 6376, 'a3': 6408, 'wh': 6440, 'bh': 6632}
 N_WEIGHTS = 6640
+# the tensor-core tile's vector, in 16-bit units: three bf16 kernels
+# [depth step][column][16], then float32 values (two units each) at
+# MMA_FLOATS offsets counted in floats
+MMA_OFFSETS = {'w1': 0, 'w2': 1920, 'w3': 4224, 'floats': 8832}
+MMA_FLOATS = {'b1': 0, 'a1': 16, 'b2': 32, 'a2': 48, 'b3': 64, 'a3': 96,
+              'wh': 128, 'bh': 384}
+MMA_N_FLOATS = 392
+MMA_N_HALFS = MMA_OFFSETS['floats'] + 2 * MMA_N_FLOATS
 
 
 def out_geometry(sh, sw):
@@ -114,20 +129,100 @@ def packed_weights(pnet, device):
     return cached
 
 
+def conv1_window_matrix(w1):
+    """conv1 + 2x2 pool window as one matrix [48, 40] (Toeplitz form).
+
+    Row k = wy * 12 + wx * 3 + c is the value at offset (wy, wx), channel
+    c of a pooled cell's 4x4 pixel window. Column p * 8 + ch (p = sy * 2 +
+    sx, ch < 8) is conv1 channel ch at position (sy, sx) of the pool
+    window; column 32 + p * 2 + (ch - 8) holds channels 8 and 9. The entry
+    is w1[c][wy - sy][wx - sx][ch] where that tap exists, else zero.
+
+    :param w1: [3, 3, 3, 10] conv1 kernel as [ci][ky][kx][co]
+    """
+    matrix = torch.zeros(4, 4, 3, 40, dtype=w1.dtype, device=w1.device)
+    for p in range(4):
+        sy, sx = divmod(p, 2)
+        taps = w1.permute(1, 2, 0, 3)                   # [ky][kx][c][co]
+        matrix[sy:sy + 3, sx:sx + 3, :, p * 8:p * 8 + 8] = taps[..., :8]
+        matrix[sy:sy + 3, sx:sx + 3, :, 32 + p * 2:34 + p * 2] = taps[..., 8:]
+    return matrix.reshape(48, 40)
+
+
+def pack_mma(packed):
+    """The packed float32 vector -> the tensor-core tile's vector
+    [MMA_N_HALFS] int16, on the same device.
+
+    conv1 becomes `conv1_window_matrix` (depth 48 = 3 steps, 40 columns);
+    conv2 and conv3 matrices [(tap, 16 input channels), co] with conv2's
+    input channels 10..15 zero (9 steps each); all three rounded to bf16
+    (exact when `packed` was packed rounded) and cut into `stem.depth_steps`
+    (each step's 16 depth values in the order one thread's four lie together).
+    Biases, slopes, the head kernel as [32][8] (6 used) and the head bias
+    follow in float32.
+    """
+    block = _blocks(packed)
+    w2 = torch.zeros(3, 3, 16, 16, dtype=packed.dtype, device=packed.device)
+    w2[:, :, :10] = block('w2', 10, 3, 3, 16).permute(1, 2, 0, 3)
+    w3 = block('w3', 16, 3, 3, 32).permute(1, 2, 0, 3)
+    kernels = torch.cat([
+        depth_steps(conv1_window_matrix(block('w1', 3, 3, 3, 10))).reshape(-1),
+        depth_steps(w2.reshape(144, 16)).reshape(-1),
+        depth_steps(w3.reshape(144, 32)).reshape(-1)])
+    floats = torch.zeros(MMA_N_FLOATS, dtype=torch.float32,
+                         device=packed.device)
+    for name, start in MMA_FLOATS.items():
+        if name == 'wh':
+            floats[start:start + 256].view(32, 8)[:, :6] = block('wh', 32, 6)
+        else:
+            size = {'1': 10, '2': 16, '3': 32, 'h': 6}[name[1]]
+            floats[start:start + size] = block(name, size)
+    out = torch.cat([kernels.to(torch.bfloat16).view(torch.int16),
+                     floats.view(torch.int16)])
+    if out.numel() != MMA_N_HALFS:
+        raise ValueError(f'packed tile weights have {out.numel()} values, '
+                         f'not {MMA_N_HALFS}')
+    return out
+
+
+def pack_weights_mma(pnet):
+    """The tensor-core tile's weight vector [MMA_N_HALFS] int16 (on the
+    CPU) of a `networks.PNet`: `pack_mma` of its rounded `pack_weights`."""
+    return pack_mma(pack_weights(pnet))
+
+
+def mma_weights(packed):
+    """`pack_mma(packed)`, cached on the vector itself until it is written
+    to, so that a cascade packs once per weight set and device. (A vector
+    made under ``torch.inference_mode`` counts no writes: nothing in the
+    port writes into one; `from_flax_params` makes a new vector.)"""
+    version = None if packed.is_inference() else packed._version
+    cached = getattr(packed, '_mma', None)
+    if cached is None or cached[0] != version:
+        cached = (version, pack_mma(packed))
+        packed._mma = cached
+    return cached[1]
+
+
 def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _unpack(packed):
-    """The packed vector as conv operands: [(OIHW kernel, bias, slope)] of
-    the three convs, then the head kernel [6, 32, 1, 1] and bias."""
+def _blocks(packed):
+    """block(name, *shape): that block of the packed float32 vector."""
     def block(name, *shape):
         start = OFFSETS[name]
         n = 1
         for side in shape:
             n *= side
         return packed[start:start + n].reshape(shape)
+    return block
 
+
+def _unpack(packed):
+    """The packed vector as conv operands: [(OIHW kernel, bias, slope)] of
+    the three convs, then the head kernel [6, 32, 1, 1] and bias."""
+    block = _blocks(packed)
     convs = []
     for i, (ci, co) in enumerate(((3, 10), (10, 16), (16, 32)), start=1):
         kernel = block(f'w{i}', ci, 3, 3, co).permute(3, 0, 1, 2).contiguous()
@@ -232,9 +327,9 @@ def pnet_forward_flat(pnet, planes, sh, sw, true_sw):
     lib = LEVEL_KERNEL.load()
     with torch.cuda.device(device):
         err = lib.pnet_flat_launch(
-            planes.data_ptr(), b, sh, sw, true_sw, weights.data_ptr(),
-            N_WEIGHTS, probs.data_ptr(), reg.data_ptr(),
-            _launch_stream(device))
+            planes.data_ptr(), b, sh, sw, true_sw,
+            mma_weights(weights).data_ptr(), MMA_N_HALFS, probs.data_ptr(),
+            reg.data_ptr(), _launch_stream(device))
     check(err, 'pnet_flat')
     pnet_forward_flat.launches += 1
     return probs, reg
@@ -342,14 +437,14 @@ def pnet_forward_pyramid(pnet, levels):
         outputs.append((p, r))
         table += [level.data_ptr(), p.data_ptr(), r.data_ptr(), sh, sw, gh, gw]
         start += n
-    weights = packed_weights(pnet, device)
+    weights = mma_weights(packed_weights(pnet, device))
 
     lib = KERNEL.load()
     rows = (ctypes.c_longlong * len(table))(*table)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.pnet_pyramid_launch(rows, len(levels), b,
-                                      weights.data_ptr(), N_WEIGHTS, stream)
+                                      weights.data_ptr(), MMA_N_HALFS, stream)
     check(err, 'pnet_pyramid')
     pnet_forward_pyramid.launches += 1
     return outputs

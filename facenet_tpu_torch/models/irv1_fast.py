@@ -159,15 +159,18 @@ def _fold_numpy(variables, cfg):
 
 
 def build_fast_params(variables, config=None, dtype=torch.bfloat16,
-                      device='cpu'):
+                      device=None):
     """Fold + fuse a trained IRv1 variable tree into the fast-path params.
 
     :param variables: flax-layout ``{'params', 'batch_stats'}`` of numpy
         arrays (as `export.load_model` or `init_variables` give them)
+    :param device: where the params go; None means the GPU (raises without
+        one), as for every entry point; pass ``'cpu'`` for the CPU
     :returns: (params: nested dict of tensors on `device` in `dtype`, cfg).
         Conv kernels are OIHW in channels_last memory; the bottleneck kernel
         is [out, in].
     """
+    device = resolve_device(device)
     cfg = check_input_config(config)
     tree = _fold_numpy(variables, cfg)
 

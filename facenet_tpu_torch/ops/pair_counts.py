@@ -14,6 +14,12 @@ below each threshold, for positive and negative pairs, plus the totals.
 the kernel, or raises; on a CPU tensor it runs `pair_histogram_plain`, the
 plain PyTorch version of the same function. The kernel is compiled with
 ``nvcc`` for sm_90a at first use, into ``facenet_tpu_torch/_build/``.
+
+The kernel takes the product on the tensor cores as three TF32 products of
+float32 values split in two (`split_tf32`, `product_3xtf32` restate that
+arithmetic in plain PyTorch); `pair_similarities` is the wrapper of its
+second entry point, which writes the clipped similarities themselves so
+that a test can hold the arithmetic against a float64 product.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ MAX_THRESHOLDS = 127
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel('pair_below_counts.cu', {
     'pair_below_counts_launch': [_ptr, _ptr, _ptr, _ptr, _ptr,
-                                 _i32, _i32, _i32, _ptr, _ptr]})
+                                 _i32, _i32, _i32, _ptr, _ptr],
+    'pair_similarities_launch': [_ptr, _i32, _i32, _ptr, _ptr]})
 
 
 class PairInputs(NamedTuple):
@@ -160,6 +167,72 @@ def pair_histogram_plain(inputs: PairInputs, chunk=1024) -> torch.Tensor:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow_tf32
     return hist.view(2, t + 1)
+
+
+def split_tf32(x):
+    """float32 x as (hi, lo), the kernel's split: hi is x rounded to TF32's
+    11 significant bits (half a unit of its last place added to the
+    magnitude bits, the 13 bits below masked off), lo = x - hi exactly; the
+    tensor core then reads lo's leading 11 bits, which the mask repeats."""
+    x = x.to(torch.float32).contiguous()
+    hi = ((x.view(torch.int32) + 0x1000) & ~0x1fff).view(torch.float32)
+    lo = x - hi
+    lo = (lo.view(torch.int32) & ~0x1fff).view(torch.float32)
+    return hi, lo
+
+
+def product_3xtf32(emb):
+    """[N, N] similarities in the kernel's arithmetic, plain PyTorch: per
+    8-deep step lo_a hi_b + hi_a lo_b + hi_a hi_b as three float32 products
+    (every term is exact in float32: 11 x 11 bits), small terms first, the
+    steps' sums added in float32, then the clip. float32 sums round to
+    nearest here; the tensor core may truncate a step's sum."""
+    hi, lo = split_tf32(emb)
+    n, d = emb.shape
+    pad = -d % 8
+    hi, lo = (torch.nn.functional.pad(v, (0, pad)) for v in (hi, lo))
+    acc = torch.zeros(n, n, dtype=torch.float32, device=emb.device)
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for k in range(0, d + pad, 8):
+            h, l = hi[:, k:k + 8], lo[:, k:k + 8]
+            acc += (l @ h.T + h @ l.T) + h @ h.T
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    return torch.clamp(acc, -1.0, 1.0)
+
+
+def pair_similarities(embeddings):
+    """clip(E E^T, -1, 1) as float32 [N, N] by the counts kernel's own
+    product code (its 3xTF32 arithmetic, with nothing binned): what a test
+    holds against a float64 product.
+
+    CUDA tensors go to the kernel (counted in
+    ``pair_similarities.launches``), CPU tensors to `product_3xtf32`.
+    """
+    emb = embeddings
+    if emb.dtype != torch.float32 or not emb.is_contiguous() or emb.ndim != 2:
+        raise ValueError('embeddings must be a contiguous float32 [N, D] tensor')
+    if emb.device.type == 'cpu':
+        return product_3xtf32(emb)
+    if emb.device.type != 'cuda':
+        raise ValueError(f'unsupported device {emb.device}')
+    n, d = emb.shape
+    out = torch.empty((n, n), dtype=torch.float32, device=emb.device)
+    if n == 0:
+        return out
+    lib = KERNEL.load()
+    with torch.cuda.device(emb.device):
+        err = lib.pair_similarities_launch(
+            emb.data_ptr(), n, d, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    check(err, 'pair_similarities')
+    pair_similarities.launches += 1
+    return out
+
+
+pair_similarities.launches = 0
 
 
 def _below(hist):

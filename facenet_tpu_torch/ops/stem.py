@@ -57,9 +57,10 @@ def _check_params(params):
                 f'(build_fast_params): {name!r} is missing')
 
 
-def _depth_steps(matrix):
+def depth_steps(matrix):
     """[K, co] -> [K / 16 steps][co][16] with each step's depth values in
-    `DEPTH_ORDER`."""
+    `DEPTH_ORDER` (the order every mma.sync bf16 kernel of the port reads
+    its weight fragments in)."""
     k, co = matrix.shape
     steps = matrix.reshape(k // 16, 16, co)[:, list(DEPTH_ORDER), :]
     return steps.permute(0, 2, 1)
@@ -95,9 +96,9 @@ def pack_stem(params):
         raise ValueError('Conv2d_2a_3x3 / Conv2d_2b_3x3 kernels are not '
                          '[32, 32, 3, 3] / [64, 32, 3, 3]')
     kernels = torch.cat([
-        _depth_steps(w1.reshape(48, 32)).reshape(-1),
-        _depth_steps(w2.reshape(288, 32)).reshape(-1),
-        _depth_steps(w3.reshape(288, 64)).reshape(-1)])
+        depth_steps(w1.reshape(48, 32)).reshape(-1),
+        depth_steps(w2.reshape(288, 32)).reshape(-1),
+        depth_steps(w3.reshape(288, 64)).reshape(-1)])
     biases = torch.cat([params[name]['b'].detach().float().cpu().reshape(-1)
                         for name in STEM_KEYS])
     packed = torch.cat([kernels.to(torch.bfloat16).view(torch.int16),

@@ -5,7 +5,9 @@ MTCNN cascade (`MTCNN._detect`, bundled weights, 480x640) on a batch of
 uint8 noise that lies on the device, under each ``pnet_impl``: 'flax' (the
 `PNet` module through cuDNN, level by level), 'flat' (the one-level kernel,
 one launch per level) and 'pyramid' (the whole-pyramid kernel, one launch).
-Times include the host: the cascade enqueues many small operations.
+Times include the host: the cascade enqueues many small operations; the
+device's busy time (torch.profiler, the sum of the kernels' durations) and
+the P-Net kernels' share of it are printed beside.
 
 On the CPU (``--device cpu``) nothing is timed: the backends' detections on
 one synthetic 192x192 scene are compared (same faces, boxes within 1.5 px).
@@ -58,7 +60,8 @@ def main(argv=None):
                 raise SystemExit('the backends disagree')
         return
 
-    from facenet_tpu_torch.utils.timing import card_line, cuda_ms, spread
+    from facenet_tpu_torch.utils.timing import (card_line, cuda_ms,
+                                                 device_busy, spread)
     print(card_line())
     rng = np.random.RandomState(0)
     images = torch.from_numpy(rng.randint(
@@ -67,9 +70,13 @@ def main(argv=None):
         det = MTCNN(image_shape=(480, 640), params=params, pnet_impl=impl,
                     device=device)
         ms, windows = cuda_ms(lambda: det._detect(images), 20, 3)
+        busy, _, rows = device_busy(lambda: det._detect(images), 3)
+        pnet_ms = sum(e.self_device_time_total for e in rows
+                      if 'pnet_' in e.key) / 3e3
         print(f'{impl}: {ms:8.2f} ms/batch{args.batch} '
               f'({args.batch * 1e3 / ms:,.0f} img/s; windows '
-              f'{spread(windows)})', flush=True)
+              f'{spread(windows)}); device busy {busy:.3f} ms, of it '
+              f'{pnet_ms:.3f} ms in the P-Net kernels', flush=True)
 
 
 if __name__ == '__main__':

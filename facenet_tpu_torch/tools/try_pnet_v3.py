@@ -5,8 +5,9 @@
 ``tools/try_pnet_v3.py`` (``pnet_v3``): the P-Net trunk on one level given
 as NHWC pixels, returning the six head outputs before any softmax. The
 kernel reads the pixels through their strides, so no transpose to planes
-runs before it. Its arithmetic is that of the cascade's per-level kernel
-(`pnet.pnet_forward_flat`): bf16 weights and activations, float32 sums.
+runs before it. Its arithmetic and its tensor-core tile are those of the
+cascade's per-level kernel (`pnet.pnet_forward_flat`): bf16 weights and
+activations, float32 sums.
 
     python -m facenet_tpu_torch.tools.try_pnet_v3 --device cpu
         equivalence of the plain version with the float32 reference
@@ -118,8 +119,9 @@ def pnet_trunk_nhwc(x_nhwc, packed):
     lib = pnet.LEVEL_KERNEL.load()
     with torch.cuda.device(device):
         err = lib.pnet_trunk_nhwc_launch(
-            x.data_ptr(), b, sh, sw, packed.data_ptr(), pnet.N_WEIGHTS,
-            heads.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), b, sh, sw, pnet.mma_weights(packed).data_ptr(),
+            pnet.MMA_N_HALFS, heads.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     check(err, 'pnet_trunk_nhwc')
     pnet_trunk_nhwc.launches += 1
     return heads

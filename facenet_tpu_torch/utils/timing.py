@@ -6,7 +6,8 @@ launch rate unless the device is kept busy meanwhile. `device_ms` therefore
 queues each window's calls behind a spin kernel that outlasts their enqueue,
 so its CUDA events bracket back-to-back device work; `cuda_ms` times the
 calls as the host issues them, which is what a caller of a whole path waits
-for.
+for. `device_busy` reads a whole path's device time from torch.profiler as
+the sum of its kernels' durations, whatever the host's launch rate.
 """
 
 from __future__ import annotations
@@ -68,6 +69,26 @@ def device_ms(fn, reps, warmup=2, windows=3):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop) / reps)
     return float(statistics.median(times)), times, host_ms
+
+
+def device_busy(fn, calls=1):
+    """torch.profiler over `calls` calls of fn(): (device busy ms per call,
+    wall ms per call, kernel rows). The busy time is the sum of the kernels'
+    own durations, so it does not depend on how fast the host issues them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / calls
+    return busy_ms, wall_ms, rows
 
 
 def spread(times):

@@ -25,6 +25,9 @@ from facenet_tpu_torch.tools import try_pnet_v3
 TINY = {'block35': {'repeat': 1}, 'block17': {'repeat': 1},
         'block8_1': {'repeat': 1}, 'output': {'size': 32}}
 LEVEL_SHAPES = [(24, 100), (61, 83), (40, 129), (12, 12)]
+# on the card also a level smaller than one tile and level 0 of the 480x640
+# pyramid; (61, 83) and (40, 129) have odd conv1 extents (SAME-pool edges)
+CARD_SHAPES = LEVEL_SHAPES + [(14, 18), (288, 384)]
 
 
 def _gpu():
@@ -75,13 +78,16 @@ def test_wrappers_take_the_plain_version_on_cpu(bundled_pnet):
             pnet.pnet_forward_pyramid.launches) == before
 
 
-def _flat_planes(rng, sh, true_sw, b=2):
+def _flat_planes(rng, sh, true_sw, b=2, nan=False):
     """bf16 planes [b, 3, sh * sw] at a pitch rounded up to 128, with
-    N(0, 3) garbage past true_sw, and the clean [b, 3, sh, true_sw] level."""
+    N(0, 3) garbage (or NaN) past true_sw, and the clean [b, 3, sh, true_sw]
+    level."""
     sw = -(-true_sw // 128) * 128
     level = _levels(rng, [(sh, true_sw)], b)[0]
     pad = torch.from_numpy(rng.normal(0, 3, (b, 3, sh, sw))
                            .astype(np.float32)).to(torch.bfloat16)
+    if nan:
+        pad[:] = float('nan')
     pad[..., :true_sw] = level
     return pad.reshape(b, 3, sh * sw), sw, level
 
@@ -239,17 +245,94 @@ def test_pair_below_counts_kernel_matches_plain():
                                rtol=1e-6, atol=1e-12)
 
 
+def _assert_counts_match(inputs):
+    """Kernel vs plain cumulative counts to rtol 1e-6, beyond the weight of
+    the pairs whose float64 similarity lies within 1e-6 of a cutoff (float32
+    sums in another order may put exactly those on either side)."""
+    before = pair_counts.pair_histogram.launches
+    kern = pair_counts.pair_histogram(inputs)
+    torch.cuda.synchronize()
+    assert pair_counts.pair_histogram.launches == before + 1
+    plain = pair_counts.pair_histogram_plain(inputs).cumsum(1)
+    e64 = inputs.embeddings.double()
+    sims = torch.clamp(e64 @ e64.T, -1.0, 1.0)
+    upper = torch.triu(torch.ones_like(sims, dtype=torch.bool), 1)
+    pos = inputs.labels[:, None] == inputs.labels[None, :]
+    weight = torch.where(pos, inputs.w_pos[:, None].expand_as(sims),
+                         inputs.inv_n[:, None] * inputs.inv_n[None, :])
+    allowed = torch.zeros_like(plain)
+    for k, cut in enumerate(inputs.cutoffs.double()):
+        near = ((sims - cut).abs() <= 1e-6) & upper
+        allowed[0, k] = (weight * (near & pos)).sum()
+        allowed[1, k] = (weight * (near & ~pos)).sum()
+    diff = (kern.cumsum(1) - plain).abs()
+    assert not bool((diff > allowed + 1e-6 * plain.abs() + 1e-12).any())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('shape', LEVEL_SHAPES)
+@pytest.mark.parametrize('case', ['1000x17', '936x512', '130 on the diagonal',
+                                  'T=1'])
+def test_pair_below_counts_kernel_shapes(case):
+    """B1 where its tiling is ragged: D = 17 (rows not 16-byte aligned, one
+    partial depth chunk), N = 936 (7.3 tiles of 128 rows), N = 130 (two
+    diagonal tiles and one sliver, labels sorted so positives abound), and
+    one threshold (every pair on one of two bins)."""
+    _gpu()
+    rng = np.random.RandomState(12)
+    n, d = {'1000x17': (1000, 17), '936x512': (936, 512),
+            '130 on the diagonal': (130, 64), 'T=1': (936, 512)}[case]
+    per_class = 13 if n == 130 else 26
+    labels = np.arange(n) // per_class
+    centres = rng.standard_normal((labels.max() + 1, d))
+    emb = centres[labels] + 0.8 * rng.standard_normal((n, d))
+    emb = (emb / np.linalg.norm(emb, axis=1, keepdims=True)).astype(np.float32)
+    thresholds = np.array([1.0]) if case == 'T=1' else np.linspace(0, 4, 100)
+    for metric in (0, 1):
+        if metric == 1 and case != 'T=1':
+            thresholds = np.linspace(0, np.pi, 100)
+        _assert_counts_match(pair_counts.prepare(
+            torch.from_numpy(emb).cuda(), labels, thresholds, metric))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(1024, 512), (1000, 17), (130, 64)])
+def test_pair_similarities_kernel_is_float32_accurate(shape):
+    """B1's own product (3xTF32 on the tensor cores) against the float64
+    product: max |s - s64| <= 5e-7, pairs at s ~ 0.5 and duplicated rows
+    (s = 1, which the clip must hold at 1) included."""
+    _gpu()
+    n, d = shape
+    rng = np.random.RandomState(9)
+    centres = rng.standard_normal((8, d))
+    centres /= np.linalg.norm(centres, axis=1, keepdims=True)
+    noise = rng.standard_normal((n, d)) / np.sqrt(d)
+    e = centres[rng.randint(0, 8, n)] + noise
+    e = (e / np.linalg.norm(e, axis=1, keepdims=True)).astype(np.float32)
+    e[1::7] = e[0::7][:e[1::7].shape[0]]                  # exact duplicates
+    x = torch.from_numpy(e).cuda()
+    before = pair_counts.pair_similarities.launches
+    got = pair_counts.pair_similarities(x)
+    torch.cuda.synchronize()
+    assert pair_counts.pair_similarities.launches == before + 1
+    s64 = torch.clamp(x.double() @ x.double().T, -1.0, 1.0)
+    assert float((got.double() - s64).abs().max()) <= 5e-7
+    assert float(got.max()) <= 1.0
+    with pytest.raises(ValueError, match='float32'):
+        pair_counts.pair_similarities(x.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', CARD_SHAPES)
 def test_pnet_level_kernels_match_plain(bundled_pnet, shape):
-    """B4 (pitch rounded up to 128, garbage past true_sw), B6 (float32
-    weights) and B7 (NHWC in, raw heads out) against their plain versions:
-    probs 0.02, reg and raw heads 0.05."""
+    """B4 (pitch rounded up to 128, NaN past true_sw), B3 on the level
+    alone, B6 (float32 weights, the CUDA-core tile) and B7 (NHWC in, raw
+    heads out) against their plain versions: probs 0.02, reg and raw heads
+    0.05."""
     _gpu()
     sh, true_sw = shape
     net = bundled_pnet.cuda()
     planes, sw, level = _flat_planes(np.random.RandomState(6), sh, true_sw,
-                                     b=3)
+                                     b=3, nan=True)
     planes, level = planes.cuda(), level.cuda()
     rounded = pnet.packed_weights(net, level.device)
     unrounded = pnet.pack_level_weights(net).cuda()
@@ -262,10 +345,14 @@ def test_pnet_level_kernels_match_plain(bundled_pnet, shape):
     z7 = try_pnet_v3.pnet_trunk_nhwc(nhwc, rounded)
     torch.cuda.synchronize()
     assert [fn.launches for fn in counters] == [n + 1 for n in before]
+    (p3, r3), = pnet.pnet_forward_pyramid(net, [level])
+    torch.cuda.synchronize()
     pw, rw = pnet.level_plain(rounded, level)
     assert p4.shape == pw.shape and r4.shape == rw.shape
-    assert float((p4 - pw).abs().max()) < 0.02
+    assert float((p4 - pw).abs().max()) < 0.02     # NaN would fail here
     assert float((r4 - rw).abs().max()) < 0.05
+    # B3 and B4 share the tile function: equal to the last bit
+    assert torch.equal(p3, p4) and torch.equal(r3, r4)
     pw, rw = pnet.level_plain(unrounded, level)
     assert float((p6 - pw).abs().max()) < 0.02
     assert float((r6 - rw).abs().max()) < 0.05

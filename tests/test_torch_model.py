@@ -127,7 +127,7 @@ def test_fused_param_shapes_match_jax_at_full_config(full_shapes):
     zeros['batch_stats'] = jax.tree_util.tree_map(np.ones_like,
                                                   zeros['batch_stats'])
     ref, _ = jax_fast.build_fast_params(zeros)
-    ours, cfg = irv1_fast.build_fast_params(zeros)
+    ours, cfg = irv1_fast.build_fast_params(zeros, device='cpu')
     assert int(cfg.block17.repeat) == 10
 
     def shapes(tree, torch_side):

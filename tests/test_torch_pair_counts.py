@@ -144,3 +144,57 @@ def test_kernel_matches_plain_on_gpu(clustered, metric):
     np.testing.assert_allclose(kern.cumsum(1).cpu().numpy(),
                                plain.cumsum(1).cpu().numpy(),
                                rtol=1e-6, atol=1e-12)
+
+
+def _unit(rng, n, d):
+    x = rng.standard_normal((n, d))
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+def test_split_tf32_parts():
+    """hi has TF32's 11 significant bits (the low 13 of a float32 are 0),
+    hi + lo restores x to 2^-22 |x|, and lo is no larger than half a unit
+    of hi's last place."""
+    x = torch.from_numpy(_unit(np.random.RandomState(7), 64, 512))
+    hi, lo = pair_counts.split_tf32(x)
+    assert int((hi.view(torch.int32) & 0x1fff).abs().max()) == 0
+    assert int((lo.view(torch.int32) & 0x1fff).abs().max()) == 0
+    rest = (x.double() - hi.double() - lo.double()).abs()
+    assert float((rest / x.double().abs()).max()) <= 2.0 ** -22
+    assert float((lo.double().abs() / x.double().abs()).max()) <= 2.0 ** -11
+    # rounded to nearest, not truncated: the parts' signs are unrelated
+    assert 0.3 < float((torch.sign(lo) == torch.sign(x)).float().mean()) < 0.7
+
+
+@pytest.mark.parametrize('case', ['D=512', 'D=17', 'duplicates'])
+def test_3xtf32_twin_is_float32_accurate(case):
+    """The kernel's product arithmetic restated in plain PyTorch (two-part
+    split, three float32 products a step) against the float64 product: max
+    |s - s64| <= 5e-7, the bound the kernel is held to on the card. One TF32
+    product alone misses it a hundredfold."""
+    rng = np.random.RandomState(8)
+    if case == 'duplicates':
+        e = np.repeat(_unit(rng, 64, 512), 2, axis=0)     # s = 1 pairs
+    else:
+        d = int(case[2:])
+        centres = _unit(rng, 8, d)                        # s ~ 0.5 pairs
+        e = centres[np.repeat(np.arange(8), 16)] + _unit(rng, 128, d)
+        e = (e / np.linalg.norm(e, axis=1, keepdims=True)).astype(np.float32)
+    x = torch.from_numpy(e)
+    s64 = torch.clamp(x.double() @ x.double().T, -1.0, 1.0)
+    before = pair_counts.pair_similarities.launches
+    got = pair_counts.pair_similarities(x)          # CPU: the plain twin
+    assert pair_counts.pair_similarities.launches == before
+    assert got.dtype == torch.float32 and got.shape == s64.shape
+    assert float((got.double() - s64).abs().max()) <= 5e-7
+    assert float(got.max()) <= 1.0                        # the clip
+    hi, _ = pair_counts.split_tf32(x)
+    one = (hi.double() @ hi.double().T - s64).abs().max()
+    assert float(one) > 5e-5
+
+
+def test_pair_similarities_raises_on_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match='float32'):
+        pair_counts.pair_similarities(torch.zeros(4, 8, dtype=torch.float64))
+    with pytest.raises(ValueError, match='contiguous'):
+        pair_counts.pair_similarities(torch.zeros(8, 4).t())

@@ -57,7 +57,7 @@ def _variables(config, seed):
 def tiny():
     variables = _variables(TINY, 1)
     jparams, jcfg = jax_fast.build_fast_params(variables, TINY)
-    params, cfg = irv1_fast.build_fast_params(variables, TINY)
+    params, cfg = irv1_fast.build_fast_params(variables, TINY, device='cpu')
     return (jparams, jcfg), (params, cfg)
 
 
@@ -212,6 +212,15 @@ def test_fast_embedder_takes_the_stem_option():
         with pytest.raises(RuntimeError, match='CUDA'):
             irv1_fast.FastEmbedder(variables, TINY, stem='fused')
     assert 'Conv2d_1a_s2d' in irv1_fast.STEM_SKIP
+
+
+def test_build_fast_params_default_device_without_gpu_raises():
+    """Like every entry point, the fused params go to the GPU unless the
+    caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        irv1_fast.build_fast_params({}, TINY)
 
 
 @pytest.mark.parametrize('case', ['size', 'params', 'stem', 'dtype',
