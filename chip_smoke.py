@@ -69,8 +69,10 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      pipeline per batch of 16 scenes (scenes/s, embedding slots/s and
      aligned embeddings of detected faces/s) and its stages alone, host
      included; and a torch.profiler breakdown of one pipeline batch;
- 13. ptxas registers, shared memory and spills of the fused stem and the
-     one-level P-Net kernels;
+ 13. ptxas registers, shared memory and spills of the fused stem (B5, the
+     persistent kernel) and the one-level P-Net kernels (B4, B6 with its
+     three weight parts, B7, and B6's accuracy probe in both summation
+     orders);
  14. the fused stem (B5) kernel vs its plain version with the full-width
      IRv1's weights: batch 8 (one image of constant 0, one of 255, six of
      noise) and batch 128 of uint8 noise through image_processing; bound
@@ -80,7 +82,13 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      pitch rounded up to 128 with N(0, 3) noise past the true width, B6
      with float32 weights, B7 on NHWC pixels with raw heads out, at
      (24, 100), (61, 83), (40, 129) and at level 0 of the 480x640 pyramid
-     (288x384, batch 16); bounds probs 0.02, reg and raw heads 0.05;
+     (288x384, batch 16); bounds probs 0.02, reg and raw heads 0.05; B6
+     must lie nearer (mean |d| of probs and of reg) to the plain version on
+     its unrounded weights than to the one on their bf16 rounding; then,
+     once, B6's conv3 sums against float64 sums of the same activations
+     and weights (three mma a step chained on the accumulator, summed from
+     zero as B6 runs, and float32 fused multiply-adds in a CUDA-core loop's
+     order);
  16. this slice's main paths, every launch count reset just before each
      and read just after: (a) FastEmbedder(stem='fused'), full-width IRv1,
      4 batches of 128 (exactly 4 B5 launches; finite unit-norm embeddings;
@@ -92,11 +100,14 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      through its main();
  17. times (device time, host enqueue beside): B5 per 128 images, rotating
      through inputs larger than the L2, beside its plain version and the
-     cuDNN prefix (F.conv2d x3 + F.max_pool2d); serving per 128 under each
+     cuDNN prefix (F.conv2d x3 + F.max_pool2d), with its schedule's shared
+     loads per mma and weight bytes staged per image against the design it
+     replaced; serving per 128 under each
      stem in turns (cudnn, fused, fused, cudnn), as the host issues it and
      as the device's busy time under torch.profiler; B4, B6 and B7 at level 0,
      batch 16, beside the plain version, the cuDNN P-Net on that level and
-     the whole-pyramid kernel's share for that level's operations; the
+     the whole-pyramid kernel's share for that level's operations, and B6's
+     bound at three bf16 mma a multiply-add; the
      cascade alone under 'flax', 'flat' and 'pyramid', host included and
      as the device's busy time.
 
@@ -653,6 +664,54 @@ def stem_work(batch):
     return 2 * batch * macs, nbytes
 
 
+# B5's three convs on an 8x8 pooled tile: (cells a side, depth steps of
+# 16, output channels, shared loads of one cell tile's A fragment a step)
+STEM_CONVS = ((21, 3, 32, 4), (19, 18, 32, 2), (17, 18, 64, 2))
+# the design B5 replaced: one block per (image, tile), one 16-cell tile x
+# 32 channels a warp's item
+STEM_SCHEDULE_PER_TILE = ((1, 4), (1, 4), (1, 4))
+
+
+def stem_fragment_loads(schedule, conv2b_tail=True):
+    """(shared-memory fragment loads, mma) per 8x8 tile of a B5 schedule,
+    (cell tiles MT, column tiles NT) of a warp's item per conv as
+    `stem.SCHEDULE`; a weight fragment is one load a column tile and step.
+    With `conv2b_tail`, conv2b's rows past its whole rounds of items on 8
+    warps run as 1 x NT items, as csrc/stem_fused.cu does."""
+    loads = mmas = 0
+    for i, ((side, steps, channels, a_loads), (mt, nt)) in enumerate(
+            zip(STEM_CONVS, schedule)):
+        rows = side * side
+        parts = [(rows, mt)]
+        if conv2b_tail and i == len(STEM_CONVS) - 1:
+            whole = rows - rows % (8 // (channels // (8 * nt)) * 16 * mt)
+            parts = [(whole, mt), (rows - whole, 1)]
+        for part_rows, part_mt in parts:
+            items = (-(-part_rows // (16 * part_mt))
+                     * (channels // (8 * nt)))
+            loads += items * steps * (part_mt * a_loads + nt)
+            mmas += items * steps * part_mt * nt
+    return loads, mmas
+
+
+def stem_schedule_line(sms):
+    """B5's shared fragment loads per mma and weight bytes staged per image
+    at batch 128 on `sms` SMs, beside the design it replaced."""
+    from facenet_tpu_torch.ops import stem
+    weight_bytes = stem.N_HALFS * 2
+    ratio = ['{:.3f} ({} loads, {} mma a tile)'.format(loads / mmas, loads,
+                                                       mmas)
+             for loads, mmas in (stem_fragment_loads(stem.SCHEDULE),
+                                 stem_fragment_loads(STEM_SCHEDULE_PER_TILE,
+                                                     False))]
+    return (f'  stem_fused schedule: shared fragment loads per mma '
+            f'{ratio[0]} (one block per tile and one cell tile an item: '
+            f'{ratio[1]}); weight bytes staged per image at batch 128 on '
+            f'{sms} SMs {stem.launch_blocks(128, sms) * weight_bytes / 128:.1f}'
+            f' (staged by every block of that design: '
+            f'{stem.TILES ** 2 * weight_bytes})')
+
+
 def flat_planes(rng, level, pitch):
     """A [B, 3, sh, sw] bf16 level as planes [B, 3, sh * pitch] with N(0, 3)
     noise in the columns past sw."""
@@ -686,19 +745,30 @@ def compare_level_kernels(rng, net, level, label):
     pu, ru = pnet.level_plain(unrounded, level)
     zw = pnet.level_plain(rounded, level, raw=True)
 
-    def diff(a, b):
+    def diff(a, b, reduce=torch.amax):
         require(a.shape == b.shape, f'{label}: shapes {a.shape} {b.shape}')
-        return float((a - b).abs().max())
+        return float(reduce((a - b).abs()))
 
     errs = {'pnet_flat': (diff(p4, pw), diff(r4, rw)),
             'pnet_level': (diff(p6, pu), diff(r6, ru)),
             'pnet_trunk_nhwc': (0.0, diff(z7, zw))}
+    # B6 against the plain version on its unrounded weights and on their
+    # bf16 rounding (what the hi part alone computes): mean |d|
+    means = {name: (diff(p6, p, torch.mean), diff(r6, r, torch.mean))
+             for name, (p, r) in (('unrounded', (pu, ru)),
+                                  ('rounded', (pw, rw)))}
     print(f'  {label} (batch {b}, {sh}x{sw}, pitch {pitch}): max |kernel - '
           'plain| ' + ', '.join(f'{k} probs {p:.3e} reg/raw {r:.3e}'
-                                for k, (p, r) in errs.items()))
+                                for k, (p, r) in errs.items())
+          + '; pnet_level mean |d| probs/reg to the unrounded plain '
+          '{:.3e}/{:.3e}, to the rounded one {:.3e}/{:.3e}'.format(
+              *means['unrounded'], *means['rounded']))
     for name, (dp, dr) in errs.items():
         require(dp < 0.02 and dr < 0.05,
                 f'{name} kernel != plain ({label}): {dp} {dr}')
+    require(all(u < r for u, r in zip(means['unrounded'], means['rounded'])),
+            f'pnet_level is not nearer to its unrounded weights ({label}): '
+            f'{means}')
     return {name: max(pair) for name, pair in errs.items()}
 
 
@@ -775,6 +845,14 @@ def slice3_phases(rng, libs, context):
         for name, err in compare_level_kernels(rng, det.pnet, level,
                                                label).items():
             level_errs[name] = max(level_errs.get(name, 0.0), err)
+    sums = try_pallas_pnet.conv_sum_errors(
+        pnet.pack_level_weights(det.pnet).to(levels[0].device), levels[0])
+    print("  pnet_level conv3 sums at level 0 against float64 sums of the "
+          "same bf16 activations and float32 weights, max |s - s64| (max "
+          f"|s64| {sums['scale']:.4f}): three mma a step chained on the "
+          f"accumulator {sums['chained']:.3e}, each step summed from zero "
+          f"(B6) {sums['step sums']:.3e}, float32 fused multiply-adds in a "
+          f"CUDA-core loop's order {sums['fma chain']:.3e}")
 
     # 16. this slice's main paths
     print("[16a] main path: FastEmbedder(stem='fused'), full-width IRv1, "
@@ -872,6 +950,8 @@ def slice3_phases(rng, libs, context):
           f'kernel| {lib_err:.3e}), bound {b5_bound:.4f} ms ({flops:.4e} '
           f'flop at the bf16 tensor-core rate, {nbytes:.4e} bytes; '
           f'{flops / H100_FP32_FLOPS * 1e3:.4f} ms at the FP32 rate)')
+    print(stem_schedule_line(
+        torch.cuda.get_device_properties(0).multi_processor_count))
 
     serving = {'cudnn': [], 'fused': []}
     busy = {'cudnn': [], 'fused': []}
@@ -918,8 +998,10 @@ def slice3_phases(rng, libs, context):
     lv_ops, lv_bytes = (flops0 / H100_BF16_FLOPS * 1e3,
                         bytes0 / H100_HBM_BYTES * 1e3)
     lv_bound = max(lv_ops, lv_bytes)
-    b6_ops = flops0 / H100_FP32_FLOPS * 1e3       # float32 weights
+    # float32 weights as three bf16 parts: three mma a multiply-add, exact
+    b6_ops = 3 * flops0 / H100_BF16_FLOPS * 1e3
     b6_bound = max(b6_ops, lv_bytes)
+    b6_fp32 = max(flops0 / H100_FP32_FLOPS * 1e3, lv_bytes)
     share = context['pyramid_ms'] * flops0 / flops_all
     print(f'  level 0 ({sh}x{sw}), batch {b}: pnet_flat {b4_ms:.4f} ms '
           f'({_spread(b4_all)}; host {b4_host:.4f}), pnet_level '
@@ -934,8 +1016,10 @@ def slice3_phases(rng, libs, context):
           f"whole-pyramid kernel's share for this level's operations "
           f'{share:.4f} ms ({flops0 / flops_all:.3f} of {flops_all:.4e} '
           f'flop); bound {lv_bound:.4f} ms ({flops0:.4e} flop at the bf16 '
-          f'tensor-core rate, {bytes0:.4e} bytes), {b6_bound:.4f} ms at '
-          'the FP32 rate that float32 weights need')
+          f'tensor-core rate, {bytes0:.4e} bytes); pnet_level (float32 '
+          f'weights as three bf16 parts) bound {b6_bound:.4f} ms (3 x '
+          f'{flops0:.4e} flop at the bf16 tensor-core rate; {b6_fp32:.4f} '
+          f'ms at the FP32 rate)')
 
     scenes16 = torch.from_numpy(images[16:32]).cuda()
     cascades = {'flax': FaceDetector(image_shape=SCENE, device='cuda',

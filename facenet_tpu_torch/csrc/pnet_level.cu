@@ -1,8 +1,7 @@
-// MTCNN P-Net on ONE pyramid level, three entry points over the tile code of
-// pnet_tile_mma.cuh (tensor cores, bf16 weights: B4 and B7) and pnet_tile.cuh
-// (CUDA cores, float32 weights as given: B6); the network, its arithmetic
-// and the shared-memory designs are described there. One block per (image,
-// 16x16 tile of head cells).
+// MTCNN P-Net on ONE pyramid level, three entry points over the tensor-core
+// tile of pnet_tile_mma.cuh (the network, its arithmetic and the
+// shared-memory design are described there). One block per (image, 16x16
+// tile of head cells).
 //
 //   pnet_flat_launch (B4) replaces the Pallas TPU kernel
 //     facenet_tpu/detectors/mtcnn/pallas_pnet.py::_make_v3_kernel (entry
@@ -14,12 +13,18 @@
 //   pnet_level_launch (B6) replaces pallas_pnet.py::_make_kernel (entry
 //     pnet_forward_pallas): contiguous bf16 NCHW [B, 3, sh, sw], softmax in
 //     the kernel. Its weights are float32 values that no one rounded to
-//     bf16, which the bf16 tensor-core tile cannot multiply exactly, so it
-//     keeps the CUDA-core tile (bound: the FP32 rate).
+//     bf16; the tile multiplies them exactly as three bf16 parts each (three
+//     mma a depth step, each step summed from zero and added outside the
+//     tensor core), so its bound is the bf16 tensor-core rate times three.
 //   pnet_trunk_nhwc_launch (B7) replaces tools/try_pnet_v3.py::make_kernel
 //     (entry pnet_v3): bf16 NHWC pixels [B, sh, sw, 3] read in place through
 //     their strides, the six head outputs before any softmax out,
 //     [B, gh, gw, 6] float32.
+//
+// pnet_level_sums_launch serves a measurement of B6's design only: it
+// writes conv3's sums and the conv2 tiles they came from (the accuracy
+// probe, with the three mma of a step chained on the accumulator or summed
+// from zero, tools/try_pallas_pnet.py::conv_sum_errors).
 //
 // What bounds them on the card: operations, as for the whole-pyramid
 // kernel (a 288x384 level is 0.39 GFLOP per image against 0.66 MB of
@@ -58,14 +63,17 @@ pnet_flat_kernel(const unsigned short* __restrict__ planes, int sh, int pitch,
   in.stride_x = 1;
   in.sh = sh;
   in.sw = true_sw;
-  tc::pnet_tile_mma<false>(smem, weights, in, gy0, gx0, g.gh, g.gw, probs,
-                           reg, (size_t)img * g.gh * g.gw);
+  tc::pnet_tile_mma<tc::OUT_PROBS>(smem, weights, in, gy0, gx0, g.gh, g.gw,
+                                   probs, reg, (size_t)img * g.gh * g.gw);
 }
 
-__global__ void __launch_bounds__(THREADS)
-pnet_level_kernel(const unsigned short* __restrict__ x, int sh, int sw, Grid g,
-                  const float* __restrict__ weights,
-                  float* __restrict__ probs, float* __restrict__ reg) {
+// One block of a contiguous NCHW level with the packed vector of PARTS
+// parts (B6 and its accuracy probe).
+template <int OUT, int PARTS, bool CHAINED>
+__device__ __forceinline__ void level_block(
+    const unsigned short* __restrict__ x, int sh, int sw, const Grid& g,
+    const unsigned short* __restrict__ weights, float* probs, float* heads,
+    unsigned short* c2_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   int img, gy0, gx0;
   block_tile(g, &img, &gy0, &gx0);
@@ -76,8 +84,30 @@ pnet_level_kernel(const unsigned short* __restrict__ x, int sh, int sw, Grid g,
   in.stride_x = 1;
   in.sh = sh;
   in.sw = sw;
-  pnet_tile<false>(reinterpret_cast<float*>(smem), weights, in, gy0, gx0,
-                   g.gh, g.gw, probs, reg, (size_t)img * g.gh * g.gw);
+  tc::pnet_tile_mma<OUT, PARTS, CHAINED>(
+      smem, weights, in, gy0, gx0, g.gh, g.gw, probs, heads,
+      (size_t)img * g.gh * g.gw, c2_out);
+}
+
+// B6: each depth step's three mma summed from zero, all three weight parts
+// in shared memory, two blocks an SM (its 125 registers allow no more).
+__global__ void __launch_bounds__(THREADS, 2)
+pnet_level_kernel(const unsigned short* __restrict__ x, int sh, int sw, Grid g,
+                  const unsigned short* __restrict__ weights,
+                  float* __restrict__ probs, float* __restrict__ reg) {
+  level_block<tc::OUT_PROBS, 3, false>(x, sh, sw, g, weights, probs, reg,
+                                       nullptr);
+}
+
+template <bool CHAINED>
+__global__ void __launch_bounds__(THREADS, 2)
+pnet_level_sums_kernel(const unsigned short* __restrict__ x, int sh, int sw,
+                       Grid g, const unsigned short* __restrict__ weights,
+                       float* __restrict__ sums,
+                       unsigned short* __restrict__ c2) {
+  level_block<tc::OUT_SUMS, 3, CHAINED>(
+      x, sh, sw, g, weights, nullptr, sums,
+      c2 + (size_t)blockIdx.x * tc::C2_HALFS);
 }
 
 __global__ void __launch_bounds__(THREADS, 3)
@@ -94,8 +124,8 @@ pnet_trunk_nhwc_kernel(const unsigned short* __restrict__ x, int sh, int sw,
   in.stride_x = 3;
   in.sh = sh;
   in.sw = sw;
-  tc::pnet_tile_mma<true>(smem, weights, in, gy0, gx0, g.gh, g.gw, nullptr,
-                          heads, (size_t)img * g.gh * g.gw);
+  tc::pnet_tile_mma<tc::OUT_RAW>(smem, weights, in, gy0, gx0, g.gh, g.gw,
+                                 nullptr, heads, (size_t)img * g.gh * g.gw);
 }
 
 // The head grid and block count of a batch of (sh, sw) levels whose rows
@@ -127,10 +157,10 @@ cudaError_t opt_in(Kernel kernel, int bytes) {
 }  // namespace
 
 // Each function launches on `stream` and returns the cudaError_t of the
-// launch (0 on success). `weights` is the packed vector on the card: for
-// pnet_flat_launch and pnet_trunk_nhwc_launch the tensor-core tile's
-// (n_weights = tc::N_HALFS 16-bit values, 16-byte aligned), for
-// pnet_level_launch the float32 one (n_weights = N_WEIGHTS).
+// launch (0 on success). `weights` is the tensor-core tile's packed vector
+// on the card (16-byte aligned): one part (n_weights = tc::N_HALFS 16-bit
+// values) for pnet_flat_launch and pnet_trunk_nhwc_launch, three parts
+// (tc::N_HALFS3) for pnet_level_launch and pnet_level_sums_launch.
 
 extern "C" int pnet_flat_launch(const void* planes, int batch, int sh,
                                 int pitch, int true_sw, const void* weights,
@@ -150,17 +180,44 @@ extern "C" int pnet_flat_launch(const void* planes, int batch, int sh,
 }
 
 extern "C" int pnet_level_launch(const void* x, int batch, int sh, int sw,
-                                 const float* weights, int n_weights,
+                                 const void* weights, int n_weights,
                                  float* probs, float* reg, void* stream) {
   Grid g;
   unsigned blocks;
-  if (!plan(batch, sh, sw, sw, n_weights, N_WEIGHTS, &g, &blocks)) {
+  if (!plan(batch, sh, sw, sw, n_weights, tc::N_HALFS3, &g, &blocks)) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaError_t err = opt_in(pnet_level_kernel, SMEM_BYTES);
+  const cudaError_t err = opt_in(pnet_level_kernel, tc::SMEM_BYTES3);
   if (err != cudaSuccess) return (int)err;
-  pnet_level_kernel<<<blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      static_cast<const unsigned short*>(x), sh, sw, g, weights, probs, reg);
+  pnet_level_kernel<<<blocks, THREADS, tc::SMEM_BYTES3,
+                      (cudaStream_t)stream>>>(
+      static_cast<const unsigned short*>(x), sh, sw, g,
+      static_cast<const unsigned short*>(weights), probs, reg);
+  return (int)cudaGetLastError();
+}
+
+// B6's accuracy probe: conv3's sums before its bias, sums [B, gh, gw, 32]
+// float32, and each block's conv2 tile, c2 [blocks][18 * 18][16] bf16 (the
+// channels in the tile's order), block = image * tiles + tile row *
+// tiles_x + tile column. `chained` != 0 chains the three mma of a depth
+// step on the accumulator, 0 sums them from zero as B6 does.
+extern "C" int pnet_level_sums_launch(const void* x, int batch, int sh,
+                                      int sw, const void* weights,
+                                      int n_weights, int chained, float* sums,
+                                      void* c2, void* stream) {
+  Grid g;
+  unsigned blocks;
+  if (!plan(batch, sh, sw, sw, n_weights, tc::N_HALFS3, &g, &blocks)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const auto kernel = chained ? pnet_level_sums_kernel<true>
+                              : pnet_level_sums_kernel<false>;
+  const cudaError_t err = opt_in(kernel, tc::SMEM_BYTES3);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, THREADS, tc::SMEM_BYTES3, (cudaStream_t)stream>>>(
+      static_cast<const unsigned short*>(x), sh, sw, g,
+      static_cast<const unsigned short*>(weights), sums,
+      static_cast<unsigned short*>(c2));
   return (int)cudaGetLastError();
 }
 

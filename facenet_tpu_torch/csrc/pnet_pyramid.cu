@@ -63,8 +63,9 @@ pnet_pyramid_kernel(const __grid_constant__ Pyramid pyr,
   in.stride_x = 1;
   in.sh = lv.sh;
   in.sw = lv.sw;
-  tc::pnet_tile_mma<false>(smem, weights, in, gy0, gx0, lv.gh, lv.gw,
-                           lv.probs, lv.reg, (size_t)img * lv.gh * lv.gw);
+  tc::pnet_tile_mma<tc::OUT_PROBS>(smem, weights, in, gy0, gx0, lv.gh,
+                                   lv.gw, lv.probs, lv.reg,
+                                   (size_t)img * lv.gh * lv.gw);
 }
 
 }  // namespace

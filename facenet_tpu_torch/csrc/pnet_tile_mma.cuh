@@ -1,16 +1,27 @@
 // One 16x16 tile of MTCNN P-Net head cells on the tensor cores: the device
-// code shared by the whole-pyramid kernel (pnet_pyramid.cu, B3) and the
-// one-level kernels on planes (B4) and on NHWC pixels (B7) of pnet_level.cu.
-// The network, its arithmetic and the input addressing are those of
-// pnet_tile.cuh, which stays for the entry point with unrounded float32
-// weights (B6): bf16 inputs, bf16 weights, float32 sums, float32 bias and
-// PReLU, activations rounded to bf16 after each PReLU, float32 heads. Only
-// the order of the sums differs from the CUDA-core tile.
+// code of the whole-pyramid kernel (pnet_pyramid.cu, B3) and of the
+// one-level kernels of pnet_level.cu on planes (B4), on NCHW input with
+// unrounded float32 weights (B6) and on NHWC pixels (B7). Geometry, input
+// addressing and helpers are those of pnet_tile.cuh. Arithmetic: bf16
+// inputs, float32 sums, float32 bias and PReLU, activations rounded to bf16
+// after each PReLU, float32 heads.
+//
+// The conv weights come as PARTS bf16 parts. PARTS = 1 (B3, B4, B7): the
+// weights are bf16 values. PARTS = 3 (B6): each float32 weight w is hi +
+// mid + lo with hi = bf16(w), mid = bf16(w - hi), lo = bf16(w - hi - mid),
+// exactly (8 significant bits each, 24 with the signs that round-to-nearest
+// leaves), and a bf16 x bf16 product is exact in float32, so three mma a
+// depth step multiply by the float32 weights exactly. The tensor core
+// truncates its float32 sums, so B6 sums each depth step's three products
+// from zero (lo, mid, hi) and adds the step into the accumulator outside
+// the tensor core, rounding to nearest (CHAINED = false). CHAINED = true
+// runs the three mma on the accumulator itself; only the accuracy probe
+// (pnet_level_sums_launch) builds it.
 //
 // What bounds the tile on the card: operations (a block does 4.3 MFLOP on
-// a 10.6 KB patch). Each conv is an implicit GEMM on mma.sync m16n8k16
-// (bf16 in, float32 sums) whose rows are the tile's cells in raster order,
-// 16 to an mma tile, one warp a tile:
+// a 10.6 KB patch, B6 three times the mma). Each conv is an implicit GEMM
+// on mma.sync m16n8k16 (bf16 in, float32 sums) whose rows are the tile's
+// cells in raster order, 16 to an mma tile, one warp a tile:
 //   conv1 + pool: a pooled cell's 4x4 pixel window x 3 channels is the
 //     depth (48 = 3 steps; the patch is staged pixel-major, so a window row
 //     is 12 contiguous halfs), and the columns are the four conv1 positions
@@ -33,7 +44,9 @@
 // that one thread feeds to one mma lie together and come with one 64-bit
 // load, and consecutive cells are consecutive in memory, so a fragment load
 // touches each bank once. The host packs the weights in the same order
-// ([depth step][column][16], detectors/mtcnn/pnet.py::pack_mma).
+// ([part][depth step][column][16], detectors/mtcnn/pnet.py::pack_mma).
+// Shared memory holds every part: 42,624 B with one part (three blocks an
+// SM), 77,952 B with three (two blocks an SM).
 
 #pragma once
 
@@ -44,12 +57,12 @@ namespace tc {
 
 typedef unsigned short bf16_t;  // bf16 bits
 
-// packed weights, mirrored by detectors/mtcnn/pnet.py: bf16 kernels in
-// 16-bit units, then float32 values (two units each)
+// packed weights, mirrored by detectors/mtcnn/pnet.py: PARTS parts of the
+// bf16 kernels in 16-bit units, then float32 values (two units each)
 constexpr int OFF_W1 = 0;        // [3 steps][40 columns][16]
 constexpr int OFF_W2 = 1920;     // [9 taps][16 channels][16]
 constexpr int OFF_W3 = 4224;     // [9 taps][32 channels][16]
-constexpr int W_HALFS = 8832;
+constexpr int W_HALFS = 8832;    // one part
 constexpr int F_B1 = 0;          // float index after the kernels
 constexpr int F_A1 = 16;
 constexpr int F_B2 = 32;
@@ -59,7 +72,13 @@ constexpr int F_A3 = 96;
 constexpr int F_WH = 128;        // [32 channels][8], 6 used
 constexpr int F_BH = 384;
 constexpr int N_FLOATS = 392;
-constexpr int N_HALFS = W_HALFS + 2 * N_FLOATS;  // 9616
+
+// 16-bit units of the packed vector of `parts` parts
+__host__ __device__ constexpr int n_halfs(int parts) {
+  return parts * W_HALFS + 2 * N_FLOATS;
+}
+constexpr int N_HALFS = n_halfs(1);   // 9616
+constexpr int N_HALFS3 = n_halfs(3);  // 27280
 
 constexpr int WARPS = THREADS / 32;
 constexpr int CELL = 16;                      // halfs per cell
@@ -69,7 +88,20 @@ constexpr int C2_HALFS = C2_SIDE * C2_SIDE * CELL;        // 5184
 constexpr int POOL_HALFS = POOL_SIDE * POOL_SIDE * CELL;  // 6400
 constexpr int A_HALFS =
     ((IN_HALFS > C2_HALFS ? IN_HALFS : C2_HALFS) + 7) / 8 * 8;
-constexpr int SMEM_BYTES = (N_HALFS + A_HALFS + POOL_HALFS) * 2;
+
+// dynamic shared memory of a tile whose weights hold `parts` parts there
+__host__ __device__ constexpr int smem_bytes(int parts) {
+  return (n_halfs(parts) + A_HALFS + POOL_HALFS) * 2;
+}
+constexpr int SMEM_BYTES = smem_bytes(1);   // 42,624
+constexpr int SMEM_BYTES3 = smem_bytes(3);  // 77,952
+
+// what the tile writes: the face probability and box offsets, the six head
+// outputs before any softmax, or (the accuracy probe) conv3's sums before
+// its bias with the tile's conv2 activations
+constexpr int OUT_PROBS = 0;
+constexpr int OUT_RAW = 1;
+constexpr int OUT_SUMS = 2;
 
 static_assert(N_HALFS % 8 == 0 && W_HALFS % 8 == 0,
               "shared-memory regions must keep 16-byte alignment");
@@ -80,14 +112,13 @@ static_assert(POOL_SIDE * POOL_SIDE % 16 == 0 && TILE == 16,
 // lane / 4 and t = lane % 4: a0 = A[g][2t, 2t+1], a1 = A[g+8][2t, 2t+1],
 // a2 = A[g][2t+8, 2t+9], a3 = A[g+8][2t+8, 2t+9]; b0 = B[2t, 2t+1][g],
 // b1 = B[2t+8, 2t+9][g]; d0, d1 = D[g][2t, 2t+1], d2, d3 = D[g+8][2t, 2t+1].
-__device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0,
-                                         unsigned a1, unsigned a2, unsigned a3,
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a,
                                          unsigned b0, unsigned b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
 // two float32 values rounded to bf16 bits (low half: the first)
@@ -100,19 +131,60 @@ __device__ __forceinline__ uint2 load2(const bf16_t* p) {
   return *reinterpret_cast<const uint2*>(p);
 }
 
-// The tile of head cells [gy0, gy0 + 16) x [gx0, gx0 + 16) of one image;
-// arguments and outputs as pnet_tile<RAW>, except that `weights` is the
-// packed vector of N_HALFS 16-bit values (16-byte aligned) and `smem` is
-// tc::SMEM_BYTES of dynamic shared memory, 16-byte aligned. Every thread of
-// the block must call this function (it synchronizes the block).
-template <bool RAW>
+// acc[m] += a[m] * w for M cell tiles that share the weight fragments of
+// one depth step and column tile (part 0 at `w` in shared memory, part p
+// W_HALFS further on): one mma a tile with one part; with three, the step's
+// products in the order lo, mid, hi, chained on acc or summed from zero and
+// added outside the tensor core.
+template <int PARTS, bool CHAINED, int M>
+__device__ __forceinline__ void mma_step(float (&acc)[M][4],
+                                         const uint4 (&a)[M],
+                                         const bf16_t* w) {
+  if constexpr (CHAINED) {
+#pragma unroll
+    for (int p = PARTS - 1; p >= 0; --p) {
+      const uint2 b = load2(w + p * W_HALFS);
+#pragma unroll
+      for (int m = 0; m < M; ++m) mma_bf16(acc[m], a[m], b.x, b.y);
+    }
+  } else {
+    float step[M][4];
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) step[m][i] = 0.f;
+#pragma unroll
+    for (int p = PARTS - 1; p >= 0; --p) {
+      const uint2 b = load2(w + p * W_HALFS);
+#pragma unroll
+      for (int m = 0; m < M; ++m) mma_bf16(step[m], a[m], b.x, b.y);
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][i] += step[m][i];
+  }
+}
+
+// The tile of head cells [gy0, gy0 + 16) x [gx0, gx0 + 16) of one image.
+// `first_cell` is the image's first cell in the output arrays (image index
+// times gh * gw). OUT_PROBS writes the face probability (2-way softmax) to
+// probs[cell] and the 4 box offsets to heads[4 * cell]; OUT_RAW the 6 head
+// outputs before any softmax to heads[6 * cell]; OUT_SUMS conv3's 32 sums
+// before its bias to heads[32 * cell] and the block's conv2 tile (C2_HALFS
+// 16-bit values, cells in raster order, channels in the order above) to
+// c2_out. `weights` is the packed vector of n_halfs(PARTS) 16-bit values on
+// the card (16-byte aligned); `smem` is smem_bytes(PARTS) of dynamic shared
+// memory, 16-byte aligned. Every thread of the block must call this
+// function (it synchronizes the block).
+template <int OUT, int PARTS = 1, bool CHAINED = (PARTS == 1)>
 __device__ __forceinline__ void pnet_tile_mma(
     unsigned char* smem, const bf16_t* __restrict__ weights,
     const TileInput& in, int gy0, int gx0, int gh, int gw, float* probs,
-    float* heads, size_t first_cell) {
+    float* heads, size_t first_cell, bf16_t* c2_out = nullptr) {
   bf16_t* s_w = reinterpret_cast<bf16_t*>(smem);
-  const float* s_f = reinterpret_cast<const float*>(s_w + W_HALFS);
-  bf16_t* s_in = s_w + N_HALFS;        // [42][42][3] pixels, later
+  const float* s_f = reinterpret_cast<const float*>(s_w + PARTS * W_HALFS);
+  bf16_t* s_in = s_w + n_halfs(PARTS);  // [42][42][3] pixels, later
   bf16_t* s_c2 = s_in;                 // [18 * 18 cells][16]
   bf16_t* s_pool = s_in + A_HALFS;     // [20 * 20 cells][16]
 
@@ -128,7 +200,7 @@ __device__ __forceinline__ void pnet_tile_mma(
   {
     const uint4* src = reinterpret_cast<const uint4*>(weights);
     uint4* dst = reinterpret_cast<uint4*>(s_w);
-    for (int i = tid; i < N_HALFS / 8; i += THREADS) dst[i] = src[i];
+    for (int i = tid; i < n_halfs(PARTS) / 8; i += THREADS) dst[i] = src[i];
   }
   const int iy0 = 2 * gy0, ix0 = 2 * gx0;
   for (int i = tid; i < IN_HALFS; i += THREADS) {
@@ -151,11 +223,11 @@ __device__ __forceinline__ void pnet_tile_mma(
         s_in + 2 * (m_lo / POOL_SIDE) * IN_ROW + 6 * (m_lo % POOL_SIDE);
     const bf16_t* a_hi =
         s_in + 2 * (m_hi / POOL_SIDE) * IN_ROW + 6 * (m_hi % POOL_SIDE);
-    float acc[5][4];
+    float acc[5][1][4];
 #pragma unroll
     for (int nt = 0; nt < 5; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+      for (int i = 0; i < 4; ++i) acc[nt][0][i] = 0.f;
 #pragma unroll
     for (int s = 0; s < 3; ++s) {
       // window value k = wy * 12 + wx * 3 + c lies at patch row wy, half
@@ -163,15 +235,15 @@ __device__ __forceinline__ void pnet_tile_mma(
       const int k0 = 16 * s + 2 * t, k1 = k0 + 8;
       const int o0 = (k0 / 12) * IN_ROW + k0 % 12;
       const int o1 = (k1 / 12) * IN_ROW + k1 % 12;
-      const unsigned a0 = *reinterpret_cast<const unsigned*>(a_lo + o0);
-      const unsigned a1 = *reinterpret_cast<const unsigned*>(a_hi + o0);
-      const unsigned a2 = *reinterpret_cast<const unsigned*>(a_lo + o1);
-      const unsigned a3 = *reinterpret_cast<const unsigned*>(a_hi + o1);
-      const bf16_t* ws = s_w + OFF_W1 + (s * 40 + g) * 16 + 4 * t;
+      const uint4 a[1] = {make_uint4(
+          *reinterpret_cast<const unsigned*>(a_lo + o0),
+          *reinterpret_cast<const unsigned*>(a_hi + o0),
+          *reinterpret_cast<const unsigned*>(a_lo + o1),
+          *reinterpret_cast<const unsigned*>(a_hi + o1))};
+      const int ws = OFF_W1 + (s * 40 + g) * 16 + 4 * t;
 #pragma unroll
       for (int nt = 0; nt < 5; ++nt) {
-        const uint2 b = load2(ws + nt * 8 * 16);
-        mma_bf16(acc[nt], a0, a1, a2, a3, b.x, b.y);
+        mma_step<PARTS, CHAINED>(acc[nt], a, s_w + ws + nt * 8 * 16);
       }
     }
     const float b_lo = s_f[F_B1 + 2 * t], b_hi = s_f[F_B1 + 2 * t + 1];
@@ -189,14 +261,14 @@ __device__ __forceinline__ void pnet_tile_mma(
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
         if (2 * py + p / 2 < h1 && 2 * px + p % 2 < w1) {
-          best0 = fmaxf(best0, prelu(acc[p][e] + b_lo, s_lo));
-          best1 = fmaxf(best1, prelu(acc[p][e + 1] + b_hi, s_hi));
+          best0 = fmaxf(best0, prelu(acc[p][0][e] + b_lo, s_lo));
+          best1 = fmaxf(best1, prelu(acc[p][0][e + 1] + b_hi, s_hi));
         }
       }
       // channels 8 and 9: this thread holds position t, the quad the rest
       const bool mine = 2 * py + t / 2 < h1 && 2 * px + t % 2 < w1;
-      float best8 = mine ? prelu(acc[4][e] + b8, s8) : -INFINITY;
-      float best9 = mine ? prelu(acc[4][e + 1] + b9, s9) : -INFINITY;
+      float best8 = mine ? prelu(acc[4][0][e] + b8, s8) : -INFINITY;
+      float best9 = mine ? prelu(acc[4][0][e + 1] + b9, s9) : -INFINITY;
 #pragma unroll
       for (int x = 1; x < 4; x <<= 1) {
         best8 = fmaxf(best8, __shfl_xor_sync(0xffffffffu, best8, x));
@@ -223,20 +295,20 @@ __device__ __forceinline__ void pnet_tile_mma(
           s_pool + ((c_lo / C2_SIDE) * POOL_SIDE + c_lo % C2_SIDE) * CELL + 4 * t;
       const bf16_t* a_hi =
           s_pool + ((c_hi / C2_SIDE) * POOL_SIDE + c_hi % C2_SIDE) * CELL + 4 * t;
-      float acc[2][4];
+      float acc[2][1][4];
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+        for (int i = 0; i < 4; ++i) acc[nt][0][i] = 0.f;
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) {
         const int off = ((tap / 3) * POOL_SIDE + tap % 3) * CELL;
         const uint2 lo = load2(a_lo + off), hi = load2(a_hi + off);
-        const bf16_t* ws = s_w + OFF_W2 + (tap * 16 + g) * 16 + 4 * t;
+        const uint4 a[1] = {make_uint4(lo.x, hi.x, lo.y, hi.y)};
+        const int ws = OFF_W2 + (tap * 16 + g) * 16 + 4 * t;
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt) {
-          const uint2 b = load2(ws + nt * 8 * 16);
-          mma_bf16(acc[nt], lo.x, hi.x, lo.y, hi.y, b.x, b.y);
+          mma_step<PARTS, CHAINED>(acc[nt], a, s_w + ws + nt * 8 * 16);
         }
       }
       // a thread's channels 2t, 2t+1 (column tile 0) and 8+2t, 9+2t (tile
@@ -253,25 +325,30 @@ __device__ __forceinline__ void pnet_tile_mma(
         const int m = half ? m_hi : m_lo, e = 2 * half;
         if (m >= M_TOTAL) continue;
         uint2 v;
-        v.x = pack_bf16(prelu(acc[0][e] + bias[0], slope[0]),
-                        prelu(acc[0][e + 1] + bias[1], slope[1]));
-        v.y = pack_bf16(prelu(acc[1][e] + bias[2], slope[2]),
-                        prelu(acc[1][e + 1] + bias[3], slope[3]));
+        v.x = pack_bf16(prelu(acc[0][0][e] + bias[0], slope[0]),
+                        prelu(acc[0][0][e + 1] + bias[1], slope[1]));
+        v.y = pack_bf16(prelu(acc[1][0][e] + bias[2], slope[2]),
+                        prelu(acc[1][0][e + 1] + bias[3], slope[3]));
         *reinterpret_cast<uint2*>(s_c2 + m * CELL + 4 * t) = v;
       }
     }
   }
   __syncthreads();
+  if constexpr (OUT == OUT_SUMS) {
+    const uint4* src = reinterpret_cast<const uint4*>(s_c2);
+    uint4* dst = reinterpret_cast<uint4*>(c2_out);
+    for (int i = tid; i < C2_HALFS / 8; i += THREADS) dst[i] = src[i];
+  }
 
   // ---- stage 3: conv3 + PReLU + bf16 and the heads; head rows 2 warp and
   // 2 warp + 1 (a cell tile is one row of the 16x16 tile)
-  float acc[2][4][4];
+  float acc[4][2][4];
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
+  for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][nt][i] = 0.f;
+      for (int i = 0; i < 4; ++i) acc[nt][j][i] = 0.f;
   const bf16_t* a_row = s_c2 + (2 * warp * C2_SIDE + g) * CELL + 4 * t;
 #pragma unroll
   for (int tap = 0; tap < 9; ++tap) {
@@ -279,13 +356,29 @@ __device__ __forceinline__ void pnet_tile_mma(
     const uint2 lo0 = load2(a), hi0 = load2(a + 8 * CELL);
     const uint2 lo1 = load2(a + C2_SIDE * CELL);
     const uint2 hi1 = load2(a + (C2_SIDE + 8) * CELL);
-    const bf16_t* ws = s_w + OFF_W3 + (tap * 32 + g) * 16 + 4 * t;
+    const uint4 rows[2] = {make_uint4(lo0.x, hi0.x, lo0.y, hi0.y),
+                           make_uint4(lo1.x, hi1.x, lo1.y, hi1.y)};
+    const int ws = OFF_W3 + (tap * 32 + g) * 16 + 4 * t;
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
-      const uint2 b = load2(ws + nt * 8 * 16);
-      mma_bf16(acc[0][nt], lo0.x, hi0.x, lo0.y, hi0.y, b.x, b.y);
-      mma_bf16(acc[1][nt], lo1.x, hi1.x, lo1.y, hi1.y, b.x, b.y);
+      mma_step<PARTS, CHAINED>(acc[nt], rows, s_w + ws + nt * 8 * 16);
     }
+  }
+  if constexpr (OUT == OUT_SUMS) {
+    // rows g and g + 8 of cell tile j: head cell (2 warp + j, g + 8 half)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int gy = gy0 + 2 * warp + j, gx = gx0 + g + 8 * half;
+        if (gy >= gh || gx >= gw) continue;
+        float* dst = heads + 32 * (first_cell + (size_t)gy * gw + gx);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          *reinterpret_cast<float2*>(dst + nt * 8 + 2 * t) = make_float2(
+              acc[nt][j][2 * half], acc[nt][j][2 * half + 1]);
+      }
+    return;
   }
   // this thread's 8 channels of four cells: (row 2 warp + j, column g +
   // 8 half); its share of their six head sums, then the quad's total
@@ -306,7 +399,7 @@ __device__ __forceinline__ void pnet_tile_mma(
 #pragma unroll
       for (int cell = 0; cell < 4; ++cell) {
         const float a = round_bf16(
-            prelu(acc[cell / 2][nt][2 * (cell % 2) + k] + bias, slope));
+            prelu(acc[nt][cell / 2][2 * (cell % 2) + k] + bias, slope));
         z[cell][0] = fmaf(w03.x, a, z[cell][0]);
         z[cell][1] = fmaf(w03.y, a, z[cell][1]);
         z[cell][2] = fmaf(w03.z, a, z[cell][2]);
@@ -333,7 +426,7 @@ __device__ __forceinline__ void pnet_tile_mma(
   const int gy = gy0 + 2 * warp + t / 2, gx = gx0 + g + 8 * (t % 2);
   if (gy >= gh || gx >= gw) return;
   const size_t cell = first_cell + (size_t)gy * gw + gx;
-  if constexpr (RAW) {
+  if constexpr (OUT == OUT_RAW) {
     float2* dst = reinterpret_cast<float2*>(heads + 6 * cell);
     dst[0] = make_float2(out[0], out[1]);
     dst[1] = make_float2(out[2], out[3]);

@@ -10,25 +10,24 @@ here: `pnet_forward_flat` (B4, replaces ``pallas_pnet.py::_make_v3_kernel``)
 on planes whose rows may be wider than the image, and `pnet_forward_level`
 (B6, replaces ``pallas_pnet.py::_make_kernel``) on NCHW input with weights
 that were not rounded to bf16. Its third entry point, on NHWC pixels (B7),
-has its wrapper in ``facenet_tpu_torch/tools/try_pnet_v3.py``. B3, B4 and B7
+has its wrapper in ``facenet_tpu_torch/tools/try_pnet_v3.py``. All of them
 run the tensor-core tile of ``csrc/pnet_tile_mma.cuh`` (each conv an
-implicit GEMM on ``mma.sync``, bf16 weights); B6 keeps the CUDA-core tile of
-``csrc/pnet_tile.cuh``, which multiplies float32 weights as they are.
+implicit GEMM on ``mma.sync``): B3, B4 and B7 with bf16 weights, B6 with
+each float32 weight split exactly into three bf16 parts.
 
 On CUDA tensors a wrapper launches its kernel, or raises; on CPU tensors it
 runs the plain version, `level_plain`, which repeats the kernels'
 arithmetic with the same packed weights.
 
-The kernels take their weights packed into one float32 vector
-(`pack_weights`; cached on the module per device by `packed_weights`): conv
-kernels as [ci][ky][kx][co], rounded to bf16 unless the caller asks
-otherwise, biases and PReLU slopes in float32, each block 16-float aligned
-for the kernels' vector loads. The offsets mirror the constants of
-``csrc/pnet_tile.cuh``. That vector is what the plain version and B6 read.
-The tensor-core tile reads a second form of it (`pack_mma`; cached on the
-vector by `mma_weights`): the bf16 kernels in the order the ``mma.sync``
-fragments load them, then biases, slopes and head weights in float32; its
-offsets mirror ``csrc/pnet_tile_mma.cuh``.
+The weights are packed into one float32 vector (`pack_weights`; cached on
+the module per device by `packed_weights`): conv kernels as [ci][ky][kx][co],
+rounded to bf16 unless the caller asks otherwise, biases and PReLU slopes
+in float32, each block 16-float aligned. That vector is what the plain
+version reads and what the wrappers take. The tile reads a second form of
+it (`pack_mma`; cached on the vector by `mma_weights`): the kernels as one
+or three bf16 parts (`split_bf16`) in the order the ``mma.sync`` fragments
+load them, then biases, slopes and head weights in float32; its offsets
+mirror ``csrc/pnet_tile_mma.cuh``.
 """
 
 from __future__ import annotations
@@ -52,7 +51,10 @@ LEVEL_KERNEL = CudaKernel('pnet_level.cu', {
     'pnet_level_launch': [_ptr, _i32, _i32, _i32, _ptr, _i32, _ptr, _ptr,
                           _ptr],
     'pnet_trunk_nhwc_launch': [_ptr, _i32, _i32, _i32, _ptr, _i32, _ptr,
-                               _ptr]}, _HEADERS)
+                               _ptr],
+    # B6's accuracy probe (tools/try_pallas_pnet.py)
+    'pnet_level_sums_launch': [_ptr, _i32, _i32, _i32, _ptr, _i32, _i32,
+                               _ptr, _ptr, _ptr]}, _HEADERS)
 
 MAX_LEVELS = 24
 # (name, offset) of each packed block; N_WEIGHTS is the total
@@ -61,12 +63,22 @@ OFFSETS = {'w1': 0, 'b1': 272, 'a1': 284, 'w2': 296, 'b2': 1736, 'a2': 1752,
 N_WEIGHTS = 6640
 # the tensor-core tile's vector, in 16-bit units: three bf16 kernels
 # [depth step][column][16], then float32 values (two units each) at
-# MMA_FLOATS offsets counted in floats
+# MMA_FLOATS offsets counted in floats. With three weight parts, parts 1
+# and 2 follow part 0 (MMA_PART_HALFS units each) before the floats.
 MMA_OFFSETS = {'w1': 0, 'w2': 1920, 'w3': 4224, 'floats': 8832}
+MMA_PART_HALFS = MMA_OFFSETS['floats']
 MMA_FLOATS = {'b1': 0, 'a1': 16, 'b2': 32, 'a2': 48, 'b3': 64, 'a3': 96,
               'wh': 128, 'bh': 384}
 MMA_N_FLOATS = 392
-MMA_N_HALFS = MMA_OFFSETS['floats'] + 2 * MMA_N_FLOATS
+
+
+def mma_n_halfs(parts=1):
+    """16-bit units of the tile's vector with `parts` weight parts."""
+    return parts * MMA_PART_HALFS + 2 * MMA_N_FLOATS
+
+
+MMA_N_HALFS = mma_n_halfs(1)     # B3, B4, B7: bf16 weights
+MMA3_N_HALFS = mma_n_halfs(3)    # B6: float32 weights as hi + mid + lo
 
 
 def out_geometry(sh, sw):
@@ -149,15 +161,33 @@ def conv1_window_matrix(w1):
     return matrix.reshape(48, 40)
 
 
-def pack_mma(packed):
+def split_bf16(w, parts=3):
+    """float32 values -> `parts` bf16 values (as float32) whose sum is w:
+    hi = bf16(w), mid = bf16(w - hi), lo = bf16(w - hi - mid), each
+    difference taken in float32, where it is exact. Three parts hold every
+    float32 value of normal magnitude exactly (8 significant bits each, 24
+    with the signs that round-to-nearest leaves); one part is the rounding
+    to bf16."""
+    rest = w.float()
+    out = []
+    for _ in range(parts):
+        part = _bf16(rest)
+        out.append(part)
+        rest = rest - part
+    return out
+
+
+def pack_mma(packed, parts=1):
     """The packed float32 vector -> the tensor-core tile's vector
-    [MMA_N_HALFS] int16, on the same device.
+    [mma_n_halfs(parts)] int16, on the same device.
 
     conv1 becomes `conv1_window_matrix` (depth 48 = 3 steps, 40 columns);
     conv2 and conv3 matrices [(tap, 16 input channels), co] with conv2's
-    input channels 10..15 zero (9 steps each); all three rounded to bf16
-    (exact when `packed` was packed rounded) and cut into `stem.depth_steps`
-    (each step's 16 depth values in the order one thread's four lie together).
+    input channels 10..15 zero (9 steps each); all three cut into
+    `stem.depth_steps` (each step's 16 depth values in the order one
+    thread's four lie together). With one part they are rounded to bf16
+    (exact when `packed` was packed rounded); with three, `split_bf16`
+    gives every part of the three matrices in turn (hi, then mid, then lo).
     Biases, slopes, the head kernel as [32][8] (6 used) and the head bias
     follow in float32.
     """
@@ -177,11 +207,12 @@ def pack_mma(packed):
         else:
             size = {'1': 10, '2': 16, '3': 32, 'h': 6}[name[1]]
             floats[start:start + size] = block(name, size)
-    out = torch.cat([kernels.to(torch.bfloat16).view(torch.int16),
-                     floats.view(torch.int16)])
-    if out.numel() != MMA_N_HALFS:
+    out = torch.cat([part.to(torch.bfloat16).view(torch.int16)
+                     for part in split_bf16(kernels, parts)]
+                    + [floats.view(torch.int16)])
+    if out.numel() != mma_n_halfs(parts):
         raise ValueError(f'packed tile weights have {out.numel()} values, '
-                         f'not {MMA_N_HALFS}')
+                         f'not {mma_n_halfs(parts)}')
     return out
 
 
@@ -191,17 +222,19 @@ def pack_weights_mma(pnet):
     return pack_mma(pack_weights(pnet))
 
 
-def mma_weights(packed):
-    """`pack_mma(packed)`, cached on the vector itself until it is written
-    to, so that a cascade packs once per weight set and device. (A vector
-    made under ``torch.inference_mode`` counts no writes: nothing in the
-    port writes into one; `from_flax_params` makes a new vector.)"""
+def mma_weights(packed, parts=1):
+    """`pack_mma(packed, parts)`, cached on the vector itself until it is
+    written to, so that a cascade packs once per weight set and device. (A
+    vector made under ``torch.inference_mode`` counts no writes: nothing in
+    the port writes into one; `from_flax_params` makes a new vector.)"""
     version = None if packed.is_inference() else packed._version
-    cached = getattr(packed, '_mma', None)
-    if cached is None or cached[0] != version:
-        cached = (version, pack_mma(packed))
-        packed._mma = cached
-    return cached[1]
+    cache = getattr(packed, '_mma', None)
+    if cache is None or cache[0] != version:
+        cache = (version, {})
+        packed._mma = cache
+    if parts not in cache[1]:
+        cache[1][parts] = pack_mma(packed, parts)
+    return cache[1][parts]
 
 
 def _bf16(x):
@@ -345,7 +378,8 @@ def pnet_forward_level(weights, x_nchw):
     the language its TPU kernel is written in; that name says nothing here.
 
     :param weights: `pack_level_weights(pnet)` on x's device: the weights
-        as they are, not rounded to bf16
+        as they are, not rounded to bf16 (the kernel multiplies them exactly
+        as three bf16 parts, `mma_weights(weights, 3)`)
     :param x_nchw: [B, 3, sh, sw] normalized image, any float dtype; it is
         rounded to bfloat16, as the TPU kernel's wrapper does
     :returns: (probs [B, gh, gw] float32, reg [B, gh, gw, 4] float32); the
@@ -375,8 +409,9 @@ def pnet_forward_level(weights, x_nchw):
     lib = LEVEL_KERNEL.load()
     with torch.cuda.device(device):
         err = lib.pnet_level_launch(
-            x.data_ptr(), b, sh, sw, weights.data_ptr(), N_WEIGHTS,
-            probs.data_ptr(), reg.data_ptr(), _launch_stream(device))
+            x.data_ptr(), b, sh, sw, mma_weights(weights, 3).data_ptr(),
+            MMA3_N_HALFS, probs.data_ptr(), reg.data_ptr(),
+            _launch_stream(device))
     check(err, 'pnet_level')
     pnet_forward_level.launches += 1
     return probs, reg

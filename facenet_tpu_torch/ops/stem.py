@@ -12,7 +12,10 @@ to bf16 after each conv) with ``F.conv2d``.
 
 The kernel reads the normalized NHWC image as `image_processing` returns it:
 the space-to-depth transform is an index map inside the kernel, so the
-TPU version's ``to_planes`` relayout has no counterpart here. Its weights
+TPU version's ``to_planes`` relayout has no counterpart here. Its grid is
+persistent: one block an SM (`launch_blocks`), as two groups of 8 warps
+that walk the (image, 8x8 pooled tile) items in a fixed stride, with all
+weights staged once per block. Its weights
 come packed into one vector of 16-bit values (`pack_stem`: the bf16 kernels
 in the order the tensor-core fragments read them, then the float32 biases;
 cached on the parameter dict per device by `packed_stem`); the offsets
@@ -34,6 +37,11 @@ KERNEL = CudaKernel('stem_fused.cu', {
 
 IMAGE = 160                     # the only input size the kernel takes
 OUT = 37                        # pooled output side
+TILES = 5                       # 8x8 pooled tiles a side (37 = 4 * 8 + 5)
+GROUPS = 2                      # groups of 8 warps in a block
+# (cell tiles, column tiles of 8 channels) of a warp's item in conv1,
+# conv2a and conv2b, as the source's CONV*_MT / CONV2B_NT constants
+SCHEDULE = ((2, 4), (3, 4), (2, 4))
 STEM_KEYS = ('Conv2d_1a_s2d', 'Conv2d_2a_3x3', 'Conv2d_2b_3x3')
 # offsets in 16-bit values: three bf16 kernels [depth step][co][16], then
 # the float32 biases b1 [32], b2 [32], b3 [64] (two 16-bit values each)
@@ -119,12 +127,27 @@ def packed_stem(params, device):
     return cached
 
 
+def launch_blocks(batch, sms):
+    """The kernel's grid on a card with `sms` multiprocessors: one block an
+    SM, fewer when the batch has fewer than two items an SM."""
+    return min(sms, -(-batch * TILES * TILES // GROUPS))
+
+
 def _check_input(x):
     if (x.dim() != 4 or tuple(x.shape[1:]) != (IMAGE, IMAGE, 3)
             or x.dtype != torch.bfloat16):
         raise ValueError(
             f'the fused stem takes normalized bfloat16 [B, {IMAGE}, {IMAGE}, '
             f'3] images, got {x.dtype} {tuple(x.shape)}')
+
+
+def _check_aligned(x, weights):
+    """The kernel copies the image in 8-byte and the weights in 16-byte
+    pieces; a view that starts between them would fault on the card."""
+    if x.data_ptr() % 8 or weights.data_ptr() % 16:
+        raise ValueError(
+            'the fused stem takes an image that starts on 8 bytes and '
+            'weights that start on 16 (got a view at a storage offset)')
 
 
 def stem_forward_plain(params, x):
@@ -158,8 +181,8 @@ def stem_forward(params, x):
 
     :param params: `build_fast_params` output (its ``Conv2d_1a_s2d``,
         ``Conv2d_2a_3x3`` and ``Conv2d_2b_3x3`` entries)
-    :param x: normalized bfloat16 images [B, 160, 160, 3], contiguous, as
-        `image_processing` returns them
+    :param x: normalized bfloat16 images [B, 160, 160, 3], contiguous and
+        8-byte aligned, as `image_processing` returns them
     :returns: [B, 64, 37, 37] bfloat16 in channels_last memory, what
         ``Conv2d_3b_1x1`` takes
 
@@ -177,6 +200,7 @@ def stem_forward(params, x):
         raise ValueError('the fused stem takes a contiguous NHWC tensor')
     b = x.shape[0]
     weights = packed_stem(params, device)
+    _check_aligned(x, weights)
     out = torch.empty((b, 64, OUT, OUT), dtype=torch.bfloat16, device=device,
                       memory_format=torch.channels_last)
     lib = KERNEL.load()

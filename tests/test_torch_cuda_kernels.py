@@ -20,7 +20,7 @@ from facenet_tpu_torch.models import irv1_fast
 from facenet_tpu_torch.models.inception_resnet_v1 import init_variables
 from facenet_tpu_torch.ops import pair_counts, stem, warp
 from facenet_tpu_torch.ops.preprocessing import image_processing
-from facenet_tpu_torch.tools import try_pnet_v3
+from facenet_tpu_torch.tools import try_pallas_pnet, try_pnet_v3
 
 TINY = {'block35': {'repeat': 1}, 'block17': {'repeat': 1},
         'block8_1': {'repeat': 1}, 'output': {'size': 32}}
@@ -325,9 +325,9 @@ def test_pair_similarities_kernel_is_float32_accurate(shape):
 @pytest.mark.parametrize('shape', CARD_SHAPES)
 def test_pnet_level_kernels_match_plain(bundled_pnet, shape):
     """B4 (pitch rounded up to 128, NaN past true_sw), B3 on the level
-    alone, B6 (float32 weights, the CUDA-core tile) and B7 (NHWC in, raw
-    heads out) against their plain versions: probs 0.02, reg and raw heads
-    0.05."""
+    alone, B6 (float32 weights as three bf16 parts on the tensor-core tile)
+    and B7 (NHWC in, raw heads out) against their plain versions: probs
+    0.02, reg and raw heads 0.05."""
     _gpu()
     sh, true_sw = shape
     net = bundled_pnet.cuda()
@@ -361,12 +361,57 @@ def test_pnet_level_kernels_match_plain(bundled_pnet, shape):
     assert float((z7 - zw).abs().max()) < 0.05
 
 
+@pytest.fixture(scope='module')
+def random_pnet():
+    """PyTorch's random init (seed 3): float32 weights far from bf16."""
+    torch.manual_seed(3)
+    return networks.PNet()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('batch', [1, 5])
+@pytest.mark.parametrize('shape', CARD_SHAPES)
+def test_pnet_level_uses_all_three_weight_parts(random_pnet, shape):
+    """B6 with random unrounded weights: within probs 0.02 and reg 0.05 of
+    `level_plain` on the unrounded vector, and nearer to it (mean |d| of
+    probs and of reg) than to `level_plain` on the rounded one, which the
+    hi part alone would compute."""
+    _gpu()
+    sh, sw = shape
+    level = _levels(np.random.RandomState(8), [(sh, sw)])[0].cuda()
+    unrounded = pnet.pack_level_weights(random_pnet).cuda()
+    rounded = pnet.pack_weights(random_pnet).cuda()
+    got = pnet.pnet_forward_level(unrounded, level)
+    torch.cuda.synchronize()
+    dist = [[float((a - b).abs().max()), float((a - b).abs().mean())]
+            for packed in (unrounded, rounded)
+            for a, b in zip(got, pnet.level_plain(packed, level))]
+    (p_max, p_mean), (r_max, r_mean) = dist[:2]
+    assert p_max < 0.02 and r_max < 0.05
+    assert p_mean < dist[2][1] and r_mean < dist[3][1]
+
+
+@pytest.mark.cuda
+def test_pnet_level_conv_sums_are_float32_accurate(random_pnet):
+    """B6's conv3 sums (the accuracy probe) against float64 sums of the
+    same bf16 activations and float32 weights: with each depth step summed
+    from zero, as B6 runs, no worse than twice what float32 fused
+    multiply-adds in a CUDA-core loop's order give."""
+    _gpu()
+    level = _levels(np.random.RandomState(9), [(61, 83)])[0].cuda()
+    errors = try_pallas_pnet.conv_sum_errors(
+        pnet.pack_level_weights(random_pnet).cuda(), level)
+    assert errors['scale'] > 0
+    assert errors['step sums'] <= 2 * errors['fma chain'] + 1e-7 * errors[
+        'scale']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('batch', [1, 8, 133])
 def test_stem_fused_kernel_matches_plain(batch):
     """B5 against its plain version on the first three convs of a
     random-weight IRv1, uint8 noise and the constant images 0 and 255: max
-    |d| / max |ref| <= 0.01, compared through NCHW indexing."""
+    |d| / max |ref| <= 0.01, compared through NCHW indexing. 133 images
+    are 3,325 items, which no grid of one block an SM divides."""
     _gpu()
     params, _ = irv1_fast.build_fast_params(init_variables(TINY, seed=0), TINY,
                                             device='cuda')

@@ -11,7 +11,9 @@ package on the same folded weights and seeded uint8 images.
 - `fast_forward(stem='fused')` on TINY against JAX
   `fast_forward(stem='pallas-interpret')` and against the port's
   `stem='cudnn'`: min cosine > 0.999;
-- the errors the JAX entry point raises.
+- the errors the JAX entry point raises, and the wrapper's alignment check;
+- the kernel's persistent walk over (image, tile) items, restated: every
+  item exactly once, for several grids and batches.
 
 The CUDA kernel itself is held to the plain version in
 tests/test_torch_cuda_kernels.py and chip_smoke.py.
@@ -178,6 +180,62 @@ def test_pack_stem_layout(tiny):
     # cached per parameter set and device
     assert stem.packed_stem(params, torch.device('cpu')) is \
         stem.packed_stem(params, torch.device('cpu'))
+
+
+@pytest.mark.parametrize('blocks', [1, 7, 132, 264])
+@pytest.mark.parametrize('batch', [1, 3, 128])
+def test_persistent_walk_visits_every_item_once(blocks, batch):
+    """The kernel's walk (csrc/stem_fused.cu): group k of block b takes
+    items GROUPS * b + k, then every GROUPS * blocks-th; together the groups
+    cover the batch's items exactly once, and no two groups' loads differ
+    by more than one item."""
+    items = batch * stem.TILES ** 2
+
+    def walk(blocks):
+        stride = stem.GROUPS * blocks
+        return [list(range(stem.GROUPS * b + k, items, stride))
+                for b in range(blocks) for k in range(stem.GROUPS)]
+
+    mine = walk(blocks)
+    assert sorted(i for group in mine for i in group) == list(range(items))
+    sizes = [len(group) for group in mine]
+    assert max(sizes) - min(sizes) <= 1
+    # the launch's own grid: one block an SM, none idle at a small batch
+    grid = stem.launch_blocks(batch, 132)
+    assert grid == min(132, -(-batch * 25 // 2))
+    assert all(walk(grid)[stem.GROUPS * b] for b in range(grid))
+
+
+def test_schedule_mirrors_the_source():
+    """`stem.SCHEDULE` (what chip_smoke counts the shared loads of) is the
+    source's schedule; the packed vector's size is the source's."""
+    import re
+
+    from facenet_tpu_torch.ops.cuda_build import CSRC
+    text = (CSRC / 'stem_fused.cu').read_text()
+
+    def constant(name):
+        return int(re.search(rf'constexpr int {name} = (\d+);',
+                             text).group(1))
+
+    assert stem.SCHEDULE == ((constant('CONV1_MT'), 4),
+                             (constant('CONV2A_MT'), 4),
+                             (constant('CONV2B_MT'), constant('CONV2B_NT')))
+    assert constant('OFF_BIAS') + 256 == stem.N_HALFS
+    assert (constant('P'), constant('GROUPS')) == (8, stem.GROUPS)
+
+
+def test_stem_forward_refuses_a_misaligned_view():
+    """The kernel copies the image in 8-byte pieces: a contiguous view that
+    starts 2 bytes into its storage is refused before any launch."""
+    n = 160 * 160 * 3
+    base = torch.zeros(n + 4, dtype=torch.bfloat16)
+    weights = torch.zeros(16, dtype=torch.int16)
+    stem._check_aligned(base[:n].view(1, 160, 160, 3), weights)
+    with pytest.raises(ValueError, match='8 bytes'):
+        stem._check_aligned(base[1:n + 1].view(1, 160, 160, 3), weights)
+    with pytest.raises(ValueError, match='16'):
+        stem._check_aligned(base[:n].view(1, 160, 160, 3), weights[1:9])
 
 
 def test_fast_forward_fused_stem_matches_jax_and_cudnn(tiny):
