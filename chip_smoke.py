@@ -7,8 +7,9 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
 
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels csrc/pair_below_counts.cu, dense_warp.cu,
-     pnet_pyramid.cu, pnet_level.cu and stem_fused.cu for sm_90a (one nvcc
-     each, all started together);
+     pnet_pyramid.cu, pnet_level.cu and stem_fused.cu, and the copy
+     yardstick csrc/copy_roof.cu, for sm_90a (one nvcc each, all started
+     together);
   3. kernel vs its plain PyTorch version at N=4096/D=512 (metrics 0 and 1),
      at the main path's fold sizes N=936 and N=104 (D=512), and at
      N=1000/D=17: cumulative counts agree to rtol 1e-6, beyond the weight
@@ -40,8 +41,9 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      kernels;
   8. the dense warp (B2) kernel vs its plain version: 32 crops 240 -> 160
      with random rotations, scales and translations that push samples off
-     the edge, the identity, a non-square output, one channel; bound 1e-3
-     (0-255 scale);
+     the edge, the identity, a non-square output, one channel, and 16
+     crops as the landmark alignment makes them for faces turned by 45 and
+     by 30 degrees; bound 1e-3 (0-255 scale);
   9. the whole-pyramid P-Net (B3) kernel vs its plain version: the
      10-level 480x640 pyramid at batch 16 and a 3-level pyramid of odd
      sizes; bounds probs 0.02, reg 0.05;
@@ -62,10 +64,15 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      main path's own inputs (the 32 240x240 intermediates and matrices that
      the landmark alignment builds for a batch of 16 scenes, checked
      against the plain version first), in copies that rotate through more
-     than the card's L2, beside its plain version and F.grid_sample, its
-     bound counting only the source pixels the taps read (these in device
-     time, each call's host enqueue time beside: a 20 us kernel launched
-     back to back from Python otherwise reads the host's launch rate); the
+     than the card's L2, beside its plain version, F.grid_sample and
+     copies of the same bytes, the practical roof at this size (the
+     yardstick csrc/copy_roof.cu with 1, 2 and 4 float4 loads in flight a
+     thread, and the library's Tensor.copy_ of the same total), its bound
+     counting only the source pixels the taps read; then B2 and the
+     copies on the four batches' 128 crops in one call
+     (these in device time, each call's host enqueue time beside: a 20 us
+     kernel launched back to back from Python otherwise reads the host's
+     launch rate); the
      pipeline per batch of 16 scenes (scenes/s, embedding slots/s and
      aligned embeddings of detected faces/s) and its stages alone, host
      included; and a torch.profiler breakdown of one pipeline batch;
@@ -271,8 +278,12 @@ def only(**launches):
 
 def warp_cases(rng):
     """(label, source [N, H, W, 3], matrices [N, 2, 3], out size) on the
-    card; the 32 random similarity warps push samples off every edge."""
+    card; the 32 random similarity warps push samples off every edge, and
+    the landmark alignment's crops of faces turned by 45 and 30 degrees
+    have the largest footprints."""
     import torch
+
+    from facenet_tpu_torch.utils.synthetic import alignment_inputs
     n, t = 32, 240
     src = rng.uniform(0, 255, (n, t, t, 3)).astype(np.float32)
     th = rng.uniform(-0.7, 0.7, n)
@@ -285,12 +296,17 @@ def warp_cases(rng):
     src_t = torch.from_numpy(src).cuda()
     mats = torch.from_numpy(m).cuda()
     eye = torch.eye(2, 3).repeat(4, 1, 1).cuda()
-    return [('32 crops 240->160', src_t, mats, (160, 160)),
-            ('identity 240->240', src_t[:4].contiguous(), eye, (240, 240)),
-            ('non-square 240->96x200', src_t[:8].contiguous(),
-             mats[:8].contiguous(), (96, 200)),
-            ('1 channel 240->160', src_t[:8, ..., :1].contiguous(),
-             mats[:8].contiguous(), (160, 160))]
+    cases = [('32 crops 240->160', src_t, mats, (160, 160)),
+             ('identity 240->240', src_t[:4].contiguous(), eye, (240, 240)),
+             ('non-square 240->96x200', src_t[:8].contiguous(),
+              mats[:8].contiguous(), (96, 200)),
+             ('1 channel 240->160', src_t[:8, ..., :1].contiguous(),
+              mats[:8].contiguous(), (160, 160))]
+    for degrees in (45, 30):
+        rot_src, rot_mats = alignment_inputs(8, degrees, 'cuda', degrees)
+        cases.append((f'{degrees} degrees, alignment crops 240->160',
+                      rot_src, rot_mats, (160, 160)))
+    return cases
 
 
 def _warp_coords(mats, size):
@@ -333,6 +349,53 @@ def warp_touched_pixels(mats, size, h, w):
                 keep &= tx > 0
             touched[(base + yi.long() * w + xi.long())[keep]] = True
     return int(touched.sum())
+
+
+def copy_roof_kernel():
+    """The copy yardstick csrc/copy_roof.cu, not a kernel of the port."""
+    import ctypes
+
+    from facenet_tpu_torch.ops.cuda_build import CudaKernel
+    ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+    return CudaKernel('copy_roof.cu', {
+        'copy_roof_launch': [ptr, i64, ptr, i64, ctypes.c_int, ptr]})
+
+
+def copy_roofs(lib, read_bytes, write_bytes, copies):
+    """{label: callable}: ways to move `read_bytes` in and `write_bytes`
+    out of device memory, rotating over `copies` buffer pairs so that the
+    reads come from HBM when their total exceeds the L2. The yardstick
+    kernel with 1 and with 4 float4 loads in flight a thread, and the
+    library's device-to-device copy (Tensor.copy_, a cudaMemcpyAsync) of
+    (read + write) / 2 bytes each way, the same total traffic."""
+    import torch
+
+    from facenet_tpu_torch.ops.cuda_build import check
+    n_in, n_out = -(-read_bytes // 16) * 4, -(-write_bytes // 16) * 4
+    n_lib = (n_in + n_out) // 2
+    pairs = [(torch.rand(max(n_in, n_lib), device='cuda'),
+              torch.empty(max(n_out, n_lib), device='cuda'))
+             for _ in range(copies)]
+
+    def kernel(loads):
+        cycle = itertools.cycle(pairs)
+
+        def run():
+            src, dst = next(cycle)
+            check(lib.copy_roof_launch(
+                src.data_ptr(), n_in, dst.data_ptr(), n_out, loads,
+                torch.cuda.current_stream().cuda_stream), 'copy_roof')
+        return run
+
+    cycle = itertools.cycle(pairs)
+
+    def library():
+        src, dst = next(cycle)
+        dst[:n_lib].copy_(src[:n_lib])
+    return {'float4 copy': kernel(1),
+            'float4 copy, 2 loads in flight': kernel(2),
+            'float4 copy, 4 loads in flight': kernel(4),
+            'Tensor.copy_ of the same total': library}
 
 
 def rotating(fn, args):
@@ -595,7 +658,47 @@ def detection_phases(rng, libs, bundle):
           f'({_spread(b2_lib_all)}; host {b2_lib_host:.4f}; max |grid_sample '
           f'- kernel| {lib_err:.3e}), bound {b2_bound:.4f} ms '
           f'({b2_bytes_n:.4e} bytes)')
+    write_n = n * size[0] * size[1] * c * 4
+    print(f'    {b2_bound / b2_ms:.3f} of its bound; copies of the same bytes '
+          f'(the practical roof at this size):')
+    for label, run in copy_roofs(libs['copy_roof'], b2_bytes_n - write_n,
+                                 write_n, ROTATE).items():
+        ms, windows, _ = device_ms(run, 60, 6)
+        print(f'      {label} {ms:.4f} ms ({_spread(windows)}); B2 '
+              f'{b2_ms / ms:.3f} of it')
     del copies, lib_copies
+
+    # B2 at 128 crops: the four batches' crops in one call, to split the
+    # fixed cost of a launch from the cost per byte
+    with torch.inference_mode():
+        scenes64 = torch.from_numpy(images).cuda()
+        lmk128 = torch.cat([det._detect(scenes64[i:i + 16])['landmarks'][:, :2]
+                            for i in range(0, 64, 16)])
+        src128, mats128 = dense_warp_inputs(scenes64.float(), lmk128, size[0])
+    del scenes64
+    err = float((warp.dense_warp(src128, mats128, size)
+                 - warp.dense_warp_plain(src128, mats128, size)).abs().max())
+    warp_errs.append(err)
+    require(err < 1e-3, f'dense_warp kernel != plain (128 crops): {err}')
+    n128 = src128.shape[0]
+    write128 = n128 * size[0] * size[1] * c * 4
+    bytes128 = (warp_touched_pixels(mats128, size, t, t) * c
+                + mats128.numel()) * 4 + write128
+    copies = [(src128.clone(), mats128.clone()) for _ in range(2)]
+    del src128
+    ms128, all128, host128 = device_ms(
+        rotating(lambda s, m: warp.dense_warp(s, m, size), copies), 30, 4)
+    bound128 = bytes128 / H100_HBM_BYTES * 1e3
+    print(f'  dense_warp, the 4 batches\' {n128} crops in one call (2 '
+          f'rotating copies): kernel {ms128:.4f} ms ({_spread(all128)}; host '
+          f'{host128:.4f}), bound {bound128:.4f} ms ({bytes128:.4e} bytes; '
+          f'{bound128 / ms128:.3f} of it); copies of the same bytes:')
+    for label, run in copy_roofs(libs['copy_roof'], bytes128 - write128,
+                                 write128, 2).items():
+        ms, windows, _ = device_ms(run, 30, 4)
+        print(f'      {label} {ms:.4f} ms ({_spread(windows)}); B2 '
+              f'{ms128 / ms:.3f} of it')
+    del copies
 
     pipe_ms, pipe_all = cuda_ms(lambda: pipe.dispatch(scenes16), 5, 2)
     faces16 = int(pipe.dispatch(scenes16)['valid'].sum())
@@ -1121,7 +1224,7 @@ def main():
     # 2. build every kernel, one nvcc each, all started together
     t0 = time.monotonic()
     kernels = (pair_counts.KERNEL, warp.KERNEL, pnet.KERNEL,
-               pnet.LEVEL_KERNEL, stem.KERNEL)
+               pnet.LEVEL_KERNEL, stem.KERNEL, copy_roof_kernel())
     libs = dict(zip((k.name for k in kernels), cuda_build.build_all(kernels)))
     print(f'[2] built {", ".join(k.library_path().name for k in kernels)} '
           f'in {time.monotonic() - t0:.1f} s')

@@ -64,7 +64,7 @@ class _LandmarkAligner:
     def __call__(self, arrays, items):
         """items: [(img_idx, n, BoundingBox with landmarks)] ->
         {(img_idx, n): uint8 [S, S, 3] crop}."""
-        from facenet_tpu_torch.detectors.mtcnn.cascade import letterbox_batch
+        from facenet_tpu_torch.detectors.mtcnn.letterbox import letterbox_batch
         from facenet_tpu_torch.ops.image_ops import align_by_landmarks
 
         out = {}

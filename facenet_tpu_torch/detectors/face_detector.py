@@ -115,7 +115,6 @@ class FaceDetector:
         if detector not in ('mtcnn', 'pypimtcnn'):
             raise ValueError(
                 'Undefined face detector type {}'.format(detector))
-        self.mode = 'RGB'
 
         from facenet_tpu_torch.detectors import pretrained
         if params is None and weights:
@@ -177,25 +176,35 @@ class FaceDetector:
         return self.detect_images([np.asarray(image)])[0]
 
     def detect_files(self, paths, batch_size=64):
-        """Image files -> per-file [BoundingBox] lists, decoded with PIL in
-        batches of `batch_size`; unreadable files get an empty list."""
-        from PIL import Image
+        """Image files -> per-file [BoundingBox] lists, in chunks of
+        `batch_size` files; unreadable files get an empty list.
+
+        Each file goes to the bucket of its native size and is decoded as
+        the JAX package's native loader decodes it
+        (`letterbox.letterbox_file`: a JPEG at a reduced DCT scale, placed
+        by its native size)."""
+        from facenet_tpu_torch.detectors.mtcnn.letterbox import letterbox_file
 
         paths = [str(p) for p in paths]
-        results = []
+        results = [[] for _ in paths]
         for start in range(0, len(paths), batch_size):
-            chunk, readable = [], []
-            for p in paths[start:start + batch_size]:
+            by_shape = {}
+            for j in range(start, min(start + batch_size, len(paths))):
                 try:
-                    with Image.open(p) as img:
-                        chunk.append(np.asarray(img.convert(self.mode)))
-                    readable.append(True)
+                    canvas, scale, pad = letterbox_file(paths[j],
+                                                        self.route_shape)
                 except Exception:
                     # an empty list, not a dummy image: a zeros frame through
                     # the cascade can emit spurious boxes
-                    readable.append(False)
-            detected = iter(self.detect_images(chunk) if chunk else ())
-            results.extend(next(detected) if ok else [] for ok in readable)
+                    continue
+                by_shape.setdefault(canvas.shape[:2], []).append(
+                    (j, canvas, scale, pad))
+            for shape, group in by_shape.items():
+                out = self.backend_for(shape).detect_batch(
+                    np.stack([canvas for _, canvas, _, _ in group]))
+                for i, (j, _, scale, (left, top)) in enumerate(group):
+                    results[j] = self._boxes_from_output(out, i, scale,
+                                                         left, top)
         return results
 
     def _boxes_from_output(self, out, i, scale, pad_x, pad_y):
@@ -227,7 +236,7 @@ class FaceDetector:
         several `image_shapes` are configured), runs the cascade per bucket
         batch, and maps boxes back to original pixels.
         """
-        from facenet_tpu_torch.detectors.mtcnn.cascade import letterbox_batch
+        from facenet_tpu_torch.detectors.mtcnn.letterbox import letterbox_batch
 
         images = [np.asarray(img) for img in images]
         by_shape = {}

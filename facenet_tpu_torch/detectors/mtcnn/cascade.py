@@ -115,25 +115,6 @@ def level_resize_matrices(image_shape, scale):
     return v, hm
 
 
-def _letterbox_placement(h, w, th, tw):
-    """(scale, nh, nw): the letterbox scale and the scaled image size, in
-    binary32 arithmetic with truncation, as the JAX package's native
-    letterbox computes them, so both place the canvas identically."""
-    f32 = np.float32
-    scale = min(f32(th) / f32(h), f32(tw) / f32(w))
-    nh = max(1, min(int(f32(h) * scale + f32(0.5)), th))
-    nw = max(1, min(int(f32(w) * scale + f32(0.5)), tw))
-    return scale, nh, nw
-
-
-def letterbox_geometry(h, w, target_shape):
-    """(scale, (pad_left, pad_top)) of the letterbox placement for an
-    (h, w) image: original_coords = (letterboxed_coords - pad) / scale."""
-    th, tw = int(target_shape[0]), int(target_shape[1])
-    scale, nh, nw = _letterbox_placement(h, w, th, tw)
-    return float(scale), ((tw - nw) // 2, (th - nh) // 2)
-
-
 class MTCNN:
     """Batched MTCNN detector.
 
@@ -343,7 +324,8 @@ class MTCNN:
         if tuple(images.shape[1:3]) != self.image_shape:
             raise ValueError(
                 f'expected {self.image_shape} images, got '
-                f'{tuple(images.shape[1:3])} — use letterbox_batch()')
+                f'{tuple(images.shape[1:3])} — use '
+                'letterbox.letterbox_batch()')
         return images.to(self.device, non_blocking=True)
 
     def detect_batch_async(self, images):
@@ -371,9 +353,9 @@ class MTCNN:
 
     def detect_batch(self, images):
         """Detect faces in a uint8 [B, H, W, 3] batch (H, W must match
-        image_shape; letterbox first with `letterbox_batch`). Returns numpy
-        'boxes' [B, K, 4], 'scores' [B, K], 'landmarks' [B, K, 5, 2],
-        'valid' [B, K] and the per-stage 'overflow' counts."""
+        image_shape; letterbox first with `letterbox.letterbox_batch`).
+        Returns numpy 'boxes' [B, K, 4], 'scores' [B, K], 'landmarks'
+        [B, K, 5, 2], 'valid' [B, K] and the per-stage 'overflow' counts."""
         return self.finalize_batch(self.detect_batch_async(images))
 
     def align_batch(self, images, landmarks, out_size=160):
@@ -385,43 +367,3 @@ class MTCNN:
             out = align_by_landmarks(images.to(self.device),
                                      landmarks.to(self.device), int(out_size))
         return out.cpu().numpy()
-
-
-def letterbox_batch(images, target_shape):
-    """Host side: scale and pad arbitrary-size images to a fixed shape.
-
-    Accepts grayscale [H, W] / [H, W, 1] (broadcast to RGB) and RGBA
-    [H, W, 4] (alpha dropped). Resizes with PIL's bilinear filter.
-
-    Returns (batch [B, H, W, 3] uint8, scales [B], pads [B, 2]) such that
-    original_coords = (letterboxed_coords - pad) / scale.
-    """
-    th, tw = int(target_shape[0]), int(target_shape[1])
-    out = np.zeros((len(images), th, tw, 3), np.uint8)
-    scales = np.zeros((len(images),), np.float32)
-    pads = np.zeros((len(images), 2), np.float32)
-
-    for i, img in enumerate(images):
-        img = np.asarray(img)
-        if img.ndim == 2:
-            img = np.repeat(img[:, :, None], 3, axis=2)
-        elif img.ndim == 3 and img.shape[2] == 1:
-            img = np.repeat(img, 3, axis=2)
-        elif img.ndim == 3 and img.shape[2] == 4:
-            img = img[:, :, :3]
-        if img.ndim != 3 or img.shape[2] != 3:
-            raise ValueError(f'image {i}: expected [H, W, (1|3|4)] or '
-                             f'[H, W], got shape {img.shape}')
-        if img.dtype != np.uint8:
-            img = np.clip(img, 0, 255).astype(np.uint8)
-        h, w = img.shape[:2]
-        scale, nh, nw = _letterbox_placement(h, w, th, tw)
-        left, top = (tw - nw) // 2, (th - nh) // 2
-        scales[i] = scale
-        pads[i] = (left, top)
-        if (nh, nw) != (h, w):
-            from PIL import Image
-            img = np.asarray(Image.fromarray(img).resize(
-                (nw, nh), Image.BILINEAR))
-        out[i, top:top + nh, left:left + nw] = img
-    return out, scales, pads

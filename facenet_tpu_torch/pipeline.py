@@ -28,7 +28,7 @@ class FacePipeline:
     :param model: a `facenet_tpu_torch.FaceNet`, a model Config, an
         `export.ModelBundle`, or an exported model directory
     :param image_shape: (H, W) of the cascade; letterbox inputs to it first
-        (detectors.mtcnn.cascade.letterbox_batch)
+        (detectors.mtcnn.letterbox.letterbox_batch)
     :param align: 'crop' | 'landmarks'
     :param margin: box-relative margin fraction for align='crop'
     :param num_faces: embedding slots per image (the first `num_faces`
@@ -118,7 +118,7 @@ class FacePipeline:
         device; boxes map back to original pixels through the letterbox
         geometry. An unreadable file gives an all-invalid row.
         """
-        from facenet_tpu_torch.detectors.mtcnn.cascade import letterbox_batch
+        from facenet_tpu_torch.detectors.mtcnn.letterbox import letterbox_batch
 
         paths = [str(p) for p in paths]
         n = len(paths)

@@ -5,6 +5,8 @@ parameters derived deterministically from a class id, faces are shaded
 analytically in a face-local frame and composited into cluttered scenes at
 a given centre, scale and rotation. `render_scene` makes the held-out
 scenes the detector quality gate and the on-card smoke run use.
+`alignment_inputs` makes the landmark alignment's warp inputs (crops and
+matrices) for faces at chosen rotations, in torch.
 
 Landmark convention matches MTCNN (Zhang et al. 2016): left eye, right
 eye, nose tip, left mouth corner, right mouth corner, as (x, y) pixels.
@@ -12,6 +14,8 @@ The same seed gives the same scene as ``facenet_tpu.utils.synthetic``.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -564,3 +568,30 @@ def render_scene(rng, shape=(256, 256), n_faces=None, identities=None,
              + rng.normal(0, rng.uniform(2, 6), img.shape))
         img = np.clip(f, 0, 255).astype(np.uint8)
     return img, boxes, lmks
+
+
+def alignment_inputs(n_scenes, seed, device, degrees=None, out_size=160):
+    """(crops [2 n_scenes, t, t, 3] float32, matrices [2 n_scenes, 2, 3]) on
+    `device`: what the landmark alignment hands the dense warp for two
+    faces of 40-200 px a 480x640 noise scene, turned by up to 30 degrees
+    (or by `degrees`); t = 240 for out_size 160 (`dense_warp_inputs`)."""
+    import torch
+
+    from facenet_tpu_torch.ops.image_ops import (canonical_landmarks,
+                                                 dense_warp_inputs)
+    rng = np.random.default_rng(seed)
+    scenes = torch.from_numpy(rng.integers(0, 256, (n_scenes, 480, 640, 3))
+                              .astype(np.float32)).to(device)
+    template = canonical_landmarks(out_size) - out_size / 2
+    lmk = np.zeros((n_scenes, 2, 5, 2), np.float32)
+    for i in range(n_scenes):
+        for k in range(2):
+            th = (math.radians(degrees) if degrees is not None
+                  else rng.uniform(-0.52, 0.52))
+            rot = np.array([[math.cos(th), -math.sin(th)],
+                            [math.sin(th), math.cos(th)]])
+            lmk[i, k] = (template @ rot.T * rng.uniform(40, 200) / out_size
+                         + rng.uniform([120, 120], [520, 360]))
+    with torch.inference_mode():
+        return dense_warp_inputs(scenes, torch.from_numpy(lmk).to(device),
+                                 out_size)

@@ -21,6 +21,7 @@ from facenet_tpu_torch.models.inception_resnet_v1 import init_variables
 from facenet_tpu_torch.ops import pair_counts, stem, warp
 from facenet_tpu_torch.ops.preprocessing import image_processing
 from facenet_tpu_torch.tools import try_pallas_pnet, try_pnet_v3
+from facenet_tpu_torch.utils import synthetic
 
 TINY = {'block35': {'repeat': 1}, 'block17': {'repeat': 1},
         'block8_1': {'repeat': 1}, 'output': {'size': 32}}
@@ -206,6 +207,51 @@ def test_dense_warp_kernel_matches_plain():
         assert float((got - want).abs().max()) < 1e-3
     with pytest.raises(ValueError, match='float32'):
         warp.dense_warp(imgs.double(), mats, (24, 32))
+
+
+def _warp_case(case):
+    """(images, matrices, out size) on the card for one B2 case."""
+    if case in ('rotated 45', 'rotated 30'):
+        degrees = float(case.split()[1])
+        return (*synthetic.alignment_inputs(4, 7, 'cuda', degrees),
+                (160, 160))
+    rng = np.random.RandomState(7)
+    # chip_smoke's phase 8: similarity warps 240 -> 160 that push samples
+    # off every edge
+    n = 133 if case == '133 crops' else 32
+    imgs = rng.uniform(0, 255, (n, 240, 240, 3)).astype(np.float32)
+    th, sc = rng.uniform(-0.7, 0.7, n), rng.uniform(0.7, 2.0, n)
+    mats = np.zeros((n, 2, 3), np.float32)
+    mats[:, 0, 0] = mats[:, 1, 1] = sc * np.cos(th)
+    mats[:, 0, 1] = -sc * np.sin(th)
+    mats[:, 1, 0] = sc * np.sin(th)
+    mats[:, :, 2] = rng.uniform(-80, 160, (n, 2))
+    imgs, mats = torch.from_numpy(imgs).cuda(), torch.from_numpy(mats).cuda()
+    if case == 'identity':
+        return imgs[:4], torch.eye(2, 3).repeat(4, 1, 1).cuda(), (240, 240)
+    if case == 'non-square':
+        return imgs[:8], mats[:8].contiguous(), (96, 200)
+    if case == 'one channel':
+        return (imgs[:8, ..., :1].contiguous(), mats[:8].contiguous(),
+                (160, 160))
+    return imgs, mats, (160, 160)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['identity', 'off the edge', 'non-square',
+                                  'one channel', '133 crops', 'rotated 45',
+                                  'rotated 30'])
+def test_dense_warp_kernel_shapes(case):
+    """B2 against its plain version at 1e-3 (0-255 scale) on chip_smoke's
+    phase 8 shapes, a crop count that does not fill the grid's last round,
+    and the landmark alignment's largest footprints (45 and 30 degrees)."""
+    _gpu()
+    src, mats, size = _warp_case(case)
+    got = warp.dense_warp(src, mats, size)
+    torch.cuda.synchronize()
+    want = warp.dense_warp_plain(src, mats, size)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) < 1e-3
 
 
 @pytest.mark.cuda

@@ -26,8 +26,9 @@ from facenet_tpu.detectors.mtcnn import cascade as jcascade
 from facenet_tpu.detectors.mtcnn import networks as jnets
 from facenet_tpu.detectors.mtcnn import pallas_pnet
 from facenet_tpu.utils.synthetic import render_scene
-from facenet_tpu_torch.detectors import pretrained
-from facenet_tpu_torch.detectors.mtcnn import cascade, networks, pnet
+from facenet_tpu_torch.detectors import evaluation, pretrained
+from facenet_tpu_torch.detectors.mtcnn import (cascade, letterbox, networks,
+                                               pnet)
 from facenet_tpu_torch.detectors.mtcnn.weights import validate_params
 
 
@@ -173,12 +174,18 @@ def test_cascade_matches_jax_flax_on_scene(params):
     va, vb = np.asarray(out_a['valid']), out_b['valid']
     np.testing.assert_array_equal(va, vb)
     assert va.sum() >= 2
-    assert np.abs(np.asarray(out_a['boxes'])[va] - out_b['boxes'][vb]).max() \
-        < 1.5
+    # detections matched by IoU, not by slot: among saturated O-Net scores
+    # (1.0 vs 0.99999988) the slot order follows earlier stages' bf16
+    # rounding, which differs between the two packages
+    boxes_a = np.asarray(out_a['boxes'])[va]
+    boxes_b = out_b['boxes'][vb]
+    match = evaluation.iou_matrix(boxes_a, boxes_b).argmax(axis=1)
+    assert sorted(match) == list(range(len(boxes_b)))
+    assert np.abs(boxes_a - boxes_b[match]).max() < 1.5
     assert np.abs(np.asarray(out_a['scores'])[va]
-                  - out_b['scores'][vb]).max() < 0.02
+                  - out_b['scores'][vb][match]).max() < 0.02
     assert np.abs(np.asarray(out_a['landmarks'])[va]
-                  - out_b['landmarks'][vb]).max() < 1.5
+                  - out_b['landmarks'][vb][match]).max() < 1.5
     # valid slots first, best score first
     k = int(vb.sum())
     assert vb[0, :k].all()
@@ -226,11 +233,11 @@ def test_letterbox_geometry_matches_jax():
     rng = np.random.RandomState(6)
     for _ in range(50):
         h, w = rng.randint(20, 2000, 2)
-        assert cascade.letterbox_geometry(h, w, (480, 640)) == \
+        assert letterbox.letterbox_geometry(h, w, (480, 640)) == \
             native.letterbox_geometry(h, w, (480, 640))
     imgs = [rng.randint(0, 256, (50, 70, 3), np.uint8),
             rng.randint(0, 256, (90, 40), np.uint8)]
-    batch, scales, pads = cascade.letterbox_batch(imgs, (64, 64))
+    batch, scales, pads = letterbox.letterbox_batch(imgs, (64, 64))
     want = jcascade.letterbox_batch(imgs, (64, 64))
     np.testing.assert_array_equal(scales, want[1])
     np.testing.assert_array_equal(pads, want[2])
