@@ -116,7 +116,39 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      the whole-pyramid kernel's share for that level's operations, and B6's
      bound at three bf16 mma a multiply-add; the
      cascade alone under 'flax', 'flat' and 'pyramid', host included and
-     as the device's busy time.
+     as the device's busy time;
+ 18. extraction: an in-memory identity set of 64 classes x 16 160x160
+     images (a seeded base image a class plus noise an image) through
+     BatchLoader(shuffle=False) with an array loader, batch 128, into
+     evaluate_embeddings with phase 4's FaceNet: rows in order, unit norms,
+     min cosine >= 0.99999 against FaceNet.evaluate on the same batches;
+     the embeddings app's npz and TFRecord writers round-trip the result
+     exactly; embeddings/s as issued, the loader alone beside it; no
+     kernel launch (the serving forward is cuDNN work);
+ 19. the embeddings app's pipeline mode: phase 10's 64 scenes in batches
+     of 16 through FacePipeline (1 face a scene) under align='crop' and
+     'landmarks', then the app's kept_rows; launch counts reset just before
+     each run and read just after: exactly 4 B3 and no B2 under 'crop', 4
+     B3 and 4 B2 under 'landmarks'; both modes keep the same scenes, whose
+     embeddings are finite and unit-norm; scenes/s of each;
+ 20. validate-on-LFW at protocol scale: LFW-shaped counts (5,749
+     identities, 13,233 images) as empty placeholder files in a temporary
+     directory, generate_pairs(10 folds x 300, seed 0) -> 6,000 pairs,
+     get_paths resolves all 12,000 paths; pixels made from each path in
+     numpy (seeded per identity and per image, no decode); the app's embed
+     with flip at batch 256 -> 12,000 x 1,024; LfwValidation (metric 0, 10
+     folds, far_target 1e-3, subtract_mean): every report number finite;
+     the flip half equals FaceNet on the flipped arrays (cosine >=
+     0.99999); 64 rows match the unfused float32 module on the CPU (cosine
+     >= 0.995); wall seconds of image making, forwards and the report;
+ 21. the port's bench through its main() (32 chunks x 128 back to back,
+     facenet_tpu_torch/bench.py): its device-busy line and its last JSON
+     line (value > 0, serving 'bf16') printed here.
+
+The GPU machine may lack PIL, yaml, h5py, sklearn and click, so nothing
+here imports them: the model bundle is built in memory, images and scenes
+are numpy arrays, and phases 18-20 hand the port's loaders arrays through a
+callable instead of decoding files.
 
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -127,8 +159,10 @@ from __future__ import annotations
 
 import itertools
 import json
+import re
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -1195,6 +1229,221 @@ def slice3_phases(rng, libs, context):
     }]
 
 
+def lfw_pixels(path):
+    """The pixels of LFW-shaped placeholder `<name>/<name>_%04d.png`, made
+    from the name: a seeded base image an identity (20 x 20 blocks of 8 px)
+    plus seeded noise an image (40 x 40 blocks of 4 px); no file is read."""
+    ident, index = (int(v) for v in
+                    re.match(r'person_(\d+)_(\d+)$', Path(path).stem).groups())
+    base = np.random.default_rng(ident).integers(
+        0, 256, (20, 20, 3), dtype=np.uint8).repeat(8, 0).repeat(8, 1)
+    noise = np.random.default_rng((ident, index)).integers(
+        -24, 25, (40, 40, 3), dtype=np.int16).repeat(4, 0).repeat(4, 1)
+    return np.clip(base + noise, 0, 255).astype(np.uint8)
+
+
+def slice7_phases(rng, context):
+    """Phases 18-21 (see the module docstring): extraction, the embeddings
+    app's pipeline mode, validate-on-LFW at protocol scale and the port's
+    bench, each with every launch count reset just before and read just
+    after."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from facenet_tpu_torch import bench, lfw
+    from facenet_tpu_torch.apps.embeddings import (kept_rows, save_npz,
+                                                   save_tfrecord)
+    from facenet_tpu_torch.apps.validate_on_lfw import embed
+    from facenet_tpu_torch.config import Config
+    from facenet_tpu_torch.dataset import BatchLoader
+    from facenet_tpu_torch.facenet import evaluate_embeddings, renormalized
+    from facenet_tpu_torch.models.inception_resnet_v1 import \
+        InceptionResnetV1
+    from facenet_tpu_torch.pipeline import FacePipeline
+    from facenet_tpu_torch.utils.synthetic import lfw_shape_counts
+    from facenet_tpu_torch.utils.tfrecord import TFRecord
+
+    facenet, smi = context['facenet'], context['smi']
+
+    # 18. extraction on the card
+    print('[18] extraction: BatchLoader (array loader, shuffle=False) -> '
+          'evaluate_embeddings, 64 classes x 16 images, batch 128 (cuda)')
+    table = {}
+    for images, labels in synthetic_batches(rng, 64, 16, 128):
+        for image, label in zip(images, labels):
+            table[f'id_{label:02d}/{len(table) % 16:04d}'] = image
+    files = list(table)
+    n = len(files)
+    classes = np.repeat(np.arange(64), 16)
+
+    def batches():
+        return BatchLoader(files, np.arange(n), table.__getitem__, 128,
+                           shuffle=False)
+
+    evaluate_embeddings(facenet.dispatch, batches())        # warm
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb, order = evaluate_embeddings(facenet.dispatch, batches())
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    t0 = time.perf_counter()
+    for _ in batches():
+        pass
+    loader_s = time.perf_counter() - t0
+    require(counts == only(), f'expected no kernel launches, got {counts}')
+    require(np.array_equal(order, np.arange(n)), 'rows out of order')
+    norms = np.linalg.norm(emb, axis=1)
+    require(emb.shape == (n, 512) and np.isfinite(emb).all()
+            and np.abs(norms - 1).max() < 1e-5,
+            'extracted embeddings are not finite and unit-norm')
+    ref = np.concatenate([facenet.evaluate(np.stack(
+        [table[f] for f in files[s:s + 128]])) for s in range(0, n, 128)])
+    cos = (emb * ref).sum(1) / np.linalg.norm(ref, axis=1)
+    require(cos.min() >= 0.99999, f'extraction != FaceNet.evaluate: min '
+            f'cosine {cos.min()}')
+    with tempfile.TemporaryDirectory() as tmp:
+        save_npz(Path(tmp) / 'e.npz', emb, classes, files)
+        data = np.load(Path(tmp) / 'e.npz')
+        save_tfrecord(Path(tmp) / 'e.tfrecord', emb, classes, files)
+        record = TFRecord(Path(tmp) / 'e.tfrecord')
+    require(np.array_equal(data['embeddings'], emb)
+            and np.array_equal(data['labels'], classes)
+            and list(data['files']) == files, 'npz round trip differs')
+    require(np.array_equal(record.embeddings, emb)
+            and np.array_equal(record.labels, classes)
+            and record.files == files, 'TFRecord round trip differs')
+    print(f'  {n} embeddings in order, unit norms, min cosine {cos.min():.7f} '
+          f'against FaceNet.evaluate; npz and TFRecord round trips exact; '
+          f'kernel launches {counts}')
+    print(f'  {wall:.3f} s = {n / wall:.1f} embeddings/s as issued; the '
+          f'loader alone {loader_s:.3f} s ({loader_s / wall:.3f} of it)')
+
+    # 19. pipeline mode on the card
+    print('[19] the embeddings app\'s pipeline mode: FacePipeline '
+          f'(align crop | landmarks, 1 face a scene, {SCENE}) -> kept_rows, '
+          'phase 10\'s 64 scenes in batches of 16 (cuda)')
+    images = context['images']
+    labels = np.repeat(np.arange(16), 4)
+    names = [f'scene_{i:02d}' for i in range(64)]
+    kept = {}
+    for align, warps in (('crop', 0), ('landmarks', 4)):
+        pipe = FacePipeline(facenet, image_shape=SCENE, align=align)
+        pipe.process_batch(images[:16])                     # warm
+        reset_launches()
+        t0 = time.perf_counter()
+        outs = [pipe.process_batch(images[i:i + 16])
+                for i in range(0, 64, 16)]
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        require(counts == only(pnet_pyramid=4, dense_warp=warps),
+                f'{align}: expected 4 pnet_pyramid and {warps} dense_warp '
+                f'launches, got {counts}')
+        rows, row_labels, row_files, dropped = kept_rows(
+            np.concatenate([o['embeddings'] for o in outs]),
+            np.concatenate([o['valid'] for o in outs]), labels, names)
+        norms = np.linalg.norm(rows, axis=1)
+        require(len(rows) > 0 and np.isfinite(rows).all()
+                and np.abs(norms - 1).max() < 1e-5,
+                f'{align}: kept embeddings are not finite and unit-norm')
+        kept[align] = (row_files, list(row_labels), dropped)
+        print(f'  {align}: {len(rows)} scenes kept, {dropped} dropped, '
+              f'kernel launches {counts}; {wall:.3f} s = {64 / wall:.1f} '
+              'scenes/s')
+    require(kept['crop'] == kept['landmarks'],
+            'the two align modes kept different scenes')
+
+    # 20. validate-on-LFW at protocol scale
+    print('[20] validate-on-LFW at protocol scale: LFW-shaped placeholder '
+          'tree -> generate_pairs(10 x 300) -> get_paths -> embed(flip, '
+          'batch 256) -> LfwValidation(metric 0, subtract_mean) (cuda)')
+    counts_lfw = lfw_shape_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / 'lfw'
+        t0 = time.perf_counter()
+        for label, count in enumerate(counts_lfw):
+            name = f'person_{label:05d}'
+            (root / name).mkdir(parents=True)
+            for i in range(1, count + 1):
+                (root / name / f'{name}_{i:04d}.png').touch()
+        tree_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pairs = lfw.generate_pairs(root, nrof_folds=10, nrof_pairs=300, seed=0)
+        paths, issame, skipped = lfw.get_paths(root, pairs)
+        pairs_s = time.perf_counter() - t0
+    require(len(pairs) == 6000 and len(paths) == 12000 and skipped == 0,
+            f'{len(pairs)} pairs, {len(paths)} paths, {skipped} skipped')
+    t0 = time.perf_counter()
+    pixels = {p: lfw_pixels(p) for p in dict.fromkeys(paths)}
+    make_s = time.perf_counter() - t0
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = embed(paths, facenet, pixels.__getitem__, 256, flip=True)
+    forward_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report = lfw.LfwValidation(emb, issame, Config({
+        'metric': 0, 'nrof_folds': 10, 'far_target': 1e-3,
+        'subtract_mean': True}))
+    report_s = time.perf_counter() - t0
+    counts = read_launches()
+    require(counts == only(), f'expected no kernel launches, got {counts}')
+    require(emb.shape == (12000, 1024) and np.isfinite(emb).all(),
+            f'bad LFW embeddings {emb.shape}')
+    values = report.dict
+    require(all(np.isfinite(float(v)) for v in values.values()),
+            f'non-finite report values {values}')
+    head = np.stack([pixels[p] for p in paths[:256]])
+    flipped = renormalized(facenet.evaluate(
+        np.ascontiguousarray(head[:, :, ::-1])))
+    cos_flip = (emb[:256, 512:] * flipped).sum(1)
+    require(cos_flip.min() >= 0.99999,
+            f'flip half != FaceNet on flipped arrays: {cos_flip.min()}')
+    t0 = time.perf_counter()
+    unfused = InceptionResnetV1().from_flax_variables(context['variables'])
+    with torch.inference_mode():
+        ref = unfused.eval()(torch.from_numpy(head[:64])).numpy()
+    cpu_s = time.perf_counter() - t0
+    cos_ref = (emb[:64, :512] * ref).sum(1) / np.linalg.norm(ref, axis=1)
+    require(cos_ref.min() >= 0.995,
+            f'min cosine {cos_ref.min()} < 0.995 against float32 on the CPU')
+    print(f'  {len(issame)} pairs ({int(issame.sum())} same) over '
+          f'{counts_lfw.size} identities / {int(counts_lfw.sum())} images, '
+          f'{len(pixels)} distinct images; embeddings {emb.shape}; kernel '
+          f'launches {counts}')
+    print('  report: ' + ', '.join(
+        f'{k} {v:.5f}' if isinstance(v, float) else f'{k} {v}'
+        for k, v in values.items()))
+    print(f'  flip half vs FaceNet on the flipped arrays: min cosine '
+          f'{cos_flip.min():.7f}; 64 rows vs the unfused float32 module on '
+          f'the CPU: min cosine {cos_ref.min():.6f} ({cpu_s:.1f} s)')
+    print(f'  wall: placeholder tree {tree_s:.3f} s, generate_pairs + '
+          f'get_paths {pairs_s:.3f} s, image making '
+          f'{make_s:.3f} s, forwards {forward_s:.3f} s (24,000 = '
+          f'{24000 / forward_s:.1f} embeddings/s, loader and host '
+          f'normalization included), report {report_s:.3f} s')
+
+    # 21. the port's bench
+    print(f'[21] the port\'s bench: python -m facenet_tpu_torch.bench '
+          f'(32 chunks x 128 back to back) on {smi}')
+    reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench.main([])
+    counts = read_launches()
+    lines = out.getvalue().strip().splitlines()
+    busy, last = json.loads(lines[-2]), json.loads(lines[-1])
+    require(counts == only(), f'expected no kernel launches, got {counts}')
+    require(last.get('metric') == bench.METRIC and last['value'] > 0
+            and last.get('serving') == 'bf16' and 'error' not in last,
+            f'bad bench line {last}')
+    print(f'  {lines[-2]}')
+    print(f'  {lines[-1]}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1409,8 +1658,9 @@ def main():
         'library_ms': library_ms,
     }
     context, detection = detection_phases(rng, libs, bundle)
-    context.update(smi=smi, variables=variables)
+    context.update(smi=smi, variables=variables, facenet=facenet)
     slice3 = slice3_phases(rng, libs, context)
+    slice7_phases(rng, context)
 
     print(f'total {time.monotonic() - started:.1f} s')
     print(json.dumps({'kernels': [pair_entry] + detection + slice3}))

@@ -1,0 +1,141 @@
+"""Benchmark: single-card embedding throughput of the flagship model.
+
+    python -m facenet_tpu_torch.bench [--device cpu]
+
+The full-width Inception-ResNet-v1 (default config, 512-d, random weights
+from ``init_variables(seed=0)``) served by `FastEmbedder` in bf16: K = 32
+chunks of 128 uint8 images, already on the card, issued back to back;
+WARMUP rounds of K chunks, then ITERS timed rounds, each closed by one
+synchronize. Runs on the GPU unless ``--device cpu``.
+
+Prints JSON lines in `bench.py`'s shape, ``{"metric":
+"embeddings_per_sec_single_chip", "value": N, "unit": "img/s",
+"vs_baseline": N, ...}``; THE LAST LINE WINS. A fallback line (value 0)
+is printed as soon as the device is up, so a run cut at any later point
+still leaves a parseable line, and a watchdog (``BENCH_DEADLINE_S``,
+default 1500 s) prints the best so far and exits if the whole run takes
+longer. The line before the last gives the device busy time of one chunk
+(torch.profiler's sum of kernel durations) beside the host-issued rate:
+serving is host-bound, so the two differ. ``BENCH_TINY=1`` runs a TINY
+model at 2 chunks of 8, so the protocol can be tested on the CPU.
+
+The baseline is the reference's published 297 img/s (a 2020-era GPU, the
+frozen TF graph at batch 100). Serving here is bf16; int8 serving is not
+ported yet, and the line says ``"serving": "bf16"``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+
+BASELINE_IMG_PER_S = 297.0
+METRIC = 'embeddings_per_sec_single_chip'
+TINY_CONFIG = {'block35': {'repeat': 1}, 'block17': {'repeat': 1},
+               'block8_1': {'repeat': 1}, 'output': {'size': 32}}
+
+
+def _note(started, msg):
+    print(f'[bench +{time.monotonic() - started:.0f}s] {msg}',
+          file=sys.stderr, flush=True)
+
+
+def main(argv=None):
+    from facenet_tpu_torch.device import resolve_device
+    from facenet_tpu_torch.models.inception_resnet_v1 import init_variables
+    from facenet_tpu_torch.models.irv1_fast import FastEmbedder
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--device', default=None,
+                        help="torch device, 'cuda' (default) or 'cpu'")
+    args = parser.parse_args(argv)
+
+    started = time.monotonic()
+    tiny = bool(os.environ.get('BENCH_TINY'))
+    chunk, k = (8, 2) if tiny else (128, 32)
+    warmup, iters = (1, 2) if tiny else (3, 8)
+    deadline = float(os.environ.get('BENCH_DEADLINE_S', '1500'))
+
+    # best so far; the watchdog prints it as it stands
+    result = {'metric': METRIC, 'value': 0.0, 'unit': 'img/s',
+              'vs_baseline': 0.0, 'error': 'no measurement completed'}
+
+    def emit(extra=None):
+        print(json.dumps({**result, **(extra or {})}), flush=True)
+
+    def expire():
+        emit({'error': f'run exceeded {deadline}s deadline; emitted '
+                       'best-so-far'})
+        os._exit(3)
+
+    watchdog = threading.Timer(deadline, expire)
+    watchdog.daemon = True
+    watchdog.start()
+    try:
+        device = resolve_device(args.device)
+        on_card = device.type == 'cuda'
+        torch.zeros(1, device=device)
+        kind = torch.cuda.get_device_name(device) if on_card else 'cpu'
+        _note(started, f'device up: {kind}')
+        emit({'error': 'device up; measurement incomplete'})
+
+        config = TINY_CONFIG if tiny else None
+        embedder = FastEmbedder(init_variables(config, seed=0),
+                                config=config, device=device)
+        rng = np.random.RandomState(0)
+        images = torch.from_numpy(rng.randint(
+            0, 256, (k, chunk, 160, 160, 3), dtype=np.uint8)).to(device)
+
+        def sync():
+            if on_card:
+                torch.cuda.synchronize(device)
+
+        def round_():
+            for j in range(k):
+                embedder(images[j])
+
+        for _ in range(warmup):
+            round_()
+        sync()
+        _note(started, 'warm; measuring')
+        windows = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            round_()
+            sync()
+            windows.append(time.perf_counter() - t0)
+        rate = k * chunk * iters / sum(windows)
+        _note(started, 'rounds of {} x {}: {} s'.format(
+            k, chunk, '/'.join(f'{w:.4f}' for w in windows)))
+
+        busy = {'chunk': chunk, 'host_issued_ms_per_chunk':
+                sum(windows) / (iters * k) * 1e3,
+                'host_issued_img_per_s': rate, 'device': kind}
+        if on_card:
+            from facenet_tpu_torch.utils.timing import device_busy
+            busy_ms = device_busy(lambda: embedder(images[0]), calls=5)[0]
+            busy.update(device_busy_ms_per_chunk=busy_ms,
+                        device_busy_img_per_s=chunk * 1e3 / busy_ms)
+        else:
+            busy.update(device_busy_ms_per_chunk='not measured')
+        print(json.dumps(busy), flush=True)
+
+        result.pop('error')
+        result.update(value=round(rate, 1),
+                      vs_baseline=round(rate / BASELINE_IMG_PER_S, 2),
+                      serving='bf16', bf16_img_per_s=round(rate, 1))
+        emit()
+    finally:
+        watchdog.cancel()
+    return result
+
+
+if __name__ == '__main__':
+    main()

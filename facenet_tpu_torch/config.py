@@ -226,3 +226,51 @@ def extract_faces(app_file_name, options):
     cfg.seed_key = set_seed(cfg.seed)
     _write_provenance(cfg, cfg.logdir, app_file_name)
     return cfg
+
+
+def embeddings(app_file_name, options):
+    """Config for the embeddings app: output ``<dataset>_<model
+    stem>/embeddings<suffix>`` (suffix .h5, .npz or .tfrecord) and
+    ``log.txt`` beside it, seeded RNGs, provenance written."""
+    cfg = load_config(app_file_name, options)
+
+    if not cfg.model.path:
+        cfg.model.path = default_model_path
+
+    if cfg.suffix not in ('.h5', '.tfrecord', '.npz'):
+        raise ValueError('Invalid suffix for output file, must be h5, npz or tfrecord.')
+
+    cfg.outdir = Path(str(cfg.dataset.path) + '_' + Path(str(cfg.model.path)).stem).expanduser()
+    cfg.logdir = cfg.outdir
+    cfg.logfile = cfg.outdir.joinpath('log.txt')
+    cfg.outfile = cfg.outdir.joinpath('embeddings').with_suffix(cfg.suffix)
+
+    cfg.seed_key = set_seed(cfg.seed)
+    _write_provenance(cfg, cfg.logdir, app_file_name)
+    return cfg
+
+
+def validate_on_lfw(app_file_name, options):
+    """Config for the fixed-pairs (LFW protocol) validation app:
+    ``dataset.path`` and ``dataset.pairs`` expanded (the pairs file
+    defaults to ``<dataset parent>/pairs.txt``), log file
+    ``<dataset>_<model stem>/validate_on_lfw.txt``, seeded RNGs, provenance
+    written."""
+    cfg = load_config(app_file_name, options)
+
+    if not cfg.model.path:
+        cfg.model.path = default_model_path
+    cfg.dataset.path = Path(str(cfg.dataset.path)).expanduser()
+    if not cfg.dataset.pairs:
+        cfg.dataset.pairs = cfg.dataset.path.parent / 'pairs.txt'
+    else:
+        cfg.dataset.pairs = Path(str(cfg.dataset.pairs)).expanduser()
+
+    cfg.outdir = Path(str(cfg.dataset.path) + '_'
+                      + Path(str(cfg.model.path)).stem).expanduser()
+    cfg.logdir = cfg.outdir
+    cfg.logfile = cfg.outdir.joinpath('validate_on_lfw.txt')
+
+    cfg.seed_key = set_seed(cfg.seed)
+    _write_provenance(cfg, cfg.logdir, app_file_name)
+    return cfg

@@ -2,12 +2,16 @@
 
 The directory-per-class `ImageClass`/`Database` index with h5 validity
 filtering and class/image subsampling, a PIL image loader with
-crop-or-pad to a fixed size, and an in-order batch generator of uint8
-NHWC arrays. PIL and h5py are imported only where files are read.
+crop-or-pad to a fixed size, and `BatchLoader`, a threaded, prefetching,
+resumable pipeline of uint8 NHWC batches. PIL and h5py are imported only
+where files are read.
 """
 
 from __future__ import annotations
 
+import queue as queue_mod
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -144,13 +148,9 @@ class Database:
         return sum(cls.nrof_images for cls in self.classes)
 
     def batches(self, loader, batch_size):
-        """(images [B,H,W,3] uint8, labels [B] int32) in index order; the
-        last batch may be smaller."""
-        files, labels = self.files, self.labels.astype(np.int32)
-        for start in range(0, len(files), int(batch_size)):
-            stop = start + int(batch_size)
-            images = np.stack([loader(f) for f in files[start:stop]])
-            yield images, labels[start:stop]
+        """`BatchLoader` over (files, labels) in index order; the last
+        batch may be smaller."""
+        return BatchLoader(self.files, self.labels, loader, batch_size)
 
 
 DBase = Database
@@ -188,3 +188,148 @@ def crop_or_pad(image, height, width):
                         (pad_w // 2, pad_w - pad_w // 2),
                         (0, 0)))
     return image
+
+
+class BatchLoader:
+    """Multithreaded, prefetching pipeline yielding uint8 batches.
+
+    Yields (images [B,H,W,3] uint8, labels [B] int32). `loader` is any
+    callable ``file -> uint8 [H, W, 3]`` (an `ImageLoader`, or a lookup
+    into arrays already in memory); `num_workers` of them run on a thread
+    pool and `prefetch` batches are staged ahead, so the host's loading
+    overlaps the device's compute.
+
+    Resumable: the shuffle order of epoch e is derived from (seed, e) alone,
+    exactly as the JAX package derives it, and the loader tracks an
+    (epoch, pos) cursor advanced as each batch is handed to the consumer.
+    `state()` captures the cursor; constructing with `start_state=`
+    continues the exact sample sequence, so a mid-epoch resume neither skips
+    nor repeats an image.
+    """
+
+    def __init__(self, files, labels, loader, batch_size, shuffle=False,
+                 repeat=False, drop_remainder=False, num_workers=8,
+                 prefetch=2, seed=None, start_state=None):
+        self.files = list(files)
+        self.labels = np.asarray(labels, dtype=np.int32)
+        self.loader = loader
+        self.batch_size = int(batch_size)
+        self.shuffle = shuffle
+        self.repeat = repeat
+        self.drop_remainder = drop_remainder
+        self.num_workers = num_workers
+        self.prefetch = prefetch
+        if seed is None:
+            seed = int(np.random.randint(0, 2 ** 31 - 1))
+        self.seed = int(seed)
+        self._epoch = 0
+        self._pos = 0                      # batches delivered this epoch
+        if start_state:
+            self.seed = int(start_state.get('seed', self.seed))
+            self._epoch = int(start_state.get('epoch', 0))
+            self._pos = int(start_state.get('pos', 0))
+
+    def __len__(self):
+        n = len(self.files)
+        if self.drop_remainder:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
+
+    def state(self):
+        """Cursor for checkpointing; feed back via `start_state=`."""
+        return {'seed': self.seed, 'epoch': self._epoch, 'pos': self._pos}
+
+    def _epoch_order(self, epoch):
+        order = np.arange(len(self.files))
+        if self.shuffle:
+            np.random.RandomState(
+                (self.seed * 1_000_003 + epoch) % (2 ** 31 - 1)).shuffle(order)
+        return order
+
+    def _index_stream(self):
+        n = len(self.files)
+        epoch, skip = self._epoch, self._pos
+        while True:
+            order = self._epoch_order(epoch)
+            produced = 0
+            for start in range(0, n, self.batch_size):
+                idx = order[start:start + self.batch_size]
+                if self.drop_remainder and len(idx) < self.batch_size:
+                    continue
+                produced += 1
+                if produced <= skip:       # resume: skip delivered batches
+                    continue
+                yield idx
+            epoch += 1
+            skip = 0
+            if not self.repeat:
+                return
+
+    def _advance(self):
+        self._pos += 1
+        if self._pos >= len(self):
+            self._epoch += 1
+            self._pos = 0
+
+    def __iter__(self):
+        # the cursor advances when a batch is handed out, so a `state()`
+        # taken after a step never re-delivers that batch on resume
+        # (prefetched but undelivered batches do not count)
+        for item in self._iter_threads():
+            self._advance()
+            yield item
+
+    def _iter_threads(self):
+        stop = threading.Event()
+        q = queue_mod.Queue(maxsize=max(self.prefetch, 1))
+
+        def put_unless_stopped(item):
+            # a bounded put that gives up when the consumer abandoned the
+            # iterator (a blocking put would leak this thread)
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue_mod.Full:
+                    continue
+            return False
+
+        def produce():
+            # end-of-stream sentinel: None for a clean end, the exception
+            # itself for a failure of the producer, so a file that cannot
+            # be loaded raises in the consumer instead of ending the epoch
+            # early and silently
+            end = None
+            try:
+                with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+                    for idx in self._index_stream():
+                        if stop.is_set():
+                            return
+                        images = list(pool.map(
+                            lambda i: self.loader(self.files[i]), idx))
+                        batch = np.stack(images)
+                        if not put_unless_stopped((batch, self.labels[idx])):
+                            return
+            except BaseException as exc:
+                end = exc
+            put_unless_stopped(end)
+
+        thread = threading.Thread(target=produce, daemon=True)
+        thread.start()
+
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            # drain so the producer can exit
+            try:
+                while q.get_nowait() is not None:
+                    pass
+            except queue_mod.Empty:
+                pass

@@ -1,13 +1,24 @@
-"""Batch embedding evaluation over a dataset."""
+"""Batch embedding evaluation over a dataset, and the stored-embeddings
+loader."""
 
 from __future__ import annotations
 
+import random
 from collections import deque
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from facenet_tpu_torch import h5utils
 from facenet_tpu_torch.logging import logger
+
+
+def renormalized(embeddings):
+    """Rows L2-normalized in float64, returned as float32."""
+    norms = np.linalg.norm(embeddings.astype(np.float64), axis=1,
+                           keepdims=True)
+    return (embeddings / np.maximum(norms, 1e-10)).astype(np.float32)
 
 
 def evaluate_embeddings(forward_fn, batches, renormalize=True):
@@ -58,11 +69,82 @@ def evaluate_embeddings(forward_fn, batches, renormalize=True):
     labels = np.concatenate(labels_)
 
     if renormalize:
-        norms = np.linalg.norm(embeddings.astype(np.float64), axis=1,
-                               keepdims=True)
-        embeddings = (embeddings / np.maximum(norms, 1e-10)).astype(np.float32)
+        embeddings = renormalized(embeddings)
 
     return embeddings, labels
+
+
+def split_embeddings(embeddings, labels):
+    """Split a flat embeddings array into per-class arrays, in label order."""
+    list_of_embeddings = []
+    for label in np.unique(labels):
+        list_of_embeddings.append(embeddings[label == labels])
+    return list_of_embeddings
+
+
+class Embeddings:
+    """Stored embeddings (an h5 file of ``embeddings`` and ``labels``) as
+    per-class arrays, with optional class and image subsampling drawn with
+    Python's `random`, as the JAX package draws them."""
+
+    def __init__(self, config):
+        self.config = config
+        self.file = Path(str(config.path)).expanduser()
+
+        per_class = split_embeddings(h5utils.read(self.file, 'embeddings'),
+                                     h5utils.read(self.file, 'labels'))
+
+        # first a random subset of classes, then a per-class cap on the
+        # image count; both draws are without replacement and leave
+        # smaller-than-cap groups untouched
+        class_cap = int(self.config.nrof_classes or 0)
+        if class_cap and class_cap < len(per_class):
+            per_class = random.sample(per_class, class_cap)
+
+        image_cap = int(self.config.max_nrof_images or 0)
+        if image_cap:
+            per_class = [
+                emb if emb.shape[0] <= image_cap
+                else emb[random.sample(range(emb.shape[0]), image_cap)]
+                for emb in per_class
+            ]
+
+        self.embeddings = per_class
+
+    def __repr__(self):
+        data = [len(e) for e in self.embeddings]
+        embeddings = np.concatenate(self.embeddings, axis=0)
+        norm = np.linalg.norm(embeddings, axis=1)
+
+        return (f'{self.__class__.__name__}\n' +
+                f'Input file {self.file}\n' +
+                f'Number of classes {self.nrof_classes} \n' +
+                f'Number of images {self.nrof_images}\n' +
+                f'Minimal number of images in class {min(data)}\n' +
+                f'Maximal number of images in class {max(data)}\n' +
+                '\n' +
+                f'Minimal embedding {np.min(norm)}\n' +
+                f'Maximal embedding {np.max(norm)}\n' +
+                f'Mean embedding {np.mean(norm)}\n')
+
+    @property
+    def nrof_classes(self):
+        return len(self.embeddings)
+
+    @property
+    def nrof_images(self):
+        return sum(len(e) for e in self.embeddings)
+
+    @property
+    def length(self):
+        return self.embeddings[0].shape[1]
+
+    def data(self, normalize=False):
+        embeddings = self.embeddings
+        if normalize:
+            embeddings = [e / np.linalg.norm(e, axis=1, keepdims=True)
+                          for e in embeddings]
+        return embeddings
 
 
 class EvaluationOfEmbeddings:

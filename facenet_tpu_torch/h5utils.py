@@ -1,5 +1,6 @@
-"""HDF5 writers for run artifacts. ``h5py`` is imported only when a file is
-written, so the package imports on a machine without it."""
+"""HDF5 storage for run artifacts and stored embeddings. ``h5py`` is
+imported only when a file is opened, so the package imports on a machine
+without it."""
 
 from __future__ import annotations
 
@@ -45,6 +46,16 @@ def write(file, name, data, mode='a'):
         hf.create_dataset(str(name), data=array, dtype=array.dtype, **GZIP)
 
 
+def read(file, name, default=None):
+    """Read dataset `name`; return `default` if absent (None raises)."""
+    with _open(file, 'r') as hf:
+        if name in hf:
+            return hf[name][...]
+    if default is not None:
+        return default
+    raise KeyError(f'Invalid key {name} in H5 file {file}')
+
+
 def write_dict(file, dct, group=None):
     """Append a (nested) dict of scalars/arrays into growable datasets.
 
@@ -68,3 +79,8 @@ def filename2key(filename, key):
     """Map <...>/<class>/<image>.<ext> to '<class>/<image>/<key>'."""
     path = Path(filename)
     return '/'.join([path.parent.stem, path.stem, str(key)])
+
+
+def keys(file):
+    with _open(file, 'r') as f:
+        return list(f.keys())

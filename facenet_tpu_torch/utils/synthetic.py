@@ -6,7 +6,9 @@ analytically in a face-local frame and composited into cluttered scenes at
 a given centre, scale and rotation. `render_scene` makes the held-out
 scenes the detector quality gate and the on-card smoke run use.
 `alignment_inputs` makes the landmark alignment's warp inputs (crops and
-matrices) for faces at chosen rotations, in torch.
+matrices) for faces at chosen rotations, in torch. `lfw_shape_counts` gives
+per-identity image counts with LFW's shape (5,749 identities, 13,233
+images, a long tail).
 
 Landmark convention matches MTCNN (Zhang et al. 2016): left eye, right
 eye, nose tip, left mouth corner, right mouth corner, as (x, y) pixels.
@@ -19,7 +21,8 @@ import math
 
 import numpy as np
 
-__all__ = ['identity_params', 'render_face_patch', 'render_scene']
+__all__ = ['identity_params', 'render_face_patch', 'render_scene',
+           'lfw_shape_counts']
 
 SCENE_FAMILIES = ('base', 'shifted', 'stress')
 
@@ -595,3 +598,50 @@ def alignment_inputs(n_scenes, seed, device, degrees=None, out_size=160):
     with torch.inference_mode():
         return dense_warp_inputs(scenes, torch.from_numpy(lmk).to(device),
                                  out_size)
+
+
+def lfw_shape_counts(n_identities=5749, n_images=13233, n_multi=1680,
+                     heaviest=530, seed=0):
+    """LFW-like long-tail per-identity image counts.
+
+    Exactly `n_identities` entries summing to exactly `n_images`:
+    singletons for everyone except `n_multi` identities whose extra
+    images follow a Zipf-style tail scaled so the heaviest identity has
+    ~`heaviest` images (LFW: George_W_Bush, 530).
+    """
+    if n_identities < n_multi:
+        raise ValueError('n_multi exceeds n_identities')
+    extra_total = n_images - n_identities          # images beyond 1 each
+    if extra_total < n_multi:
+        raise ValueError('not enough images for the multi-image tail')
+    # Zipf tail: extra_i = (heaviest-1)/i^a with the exponent solved by
+    # bisection so the tail sums to extra_total (keeps the heaviest
+    # identity pinned at ~`heaviest` instead of rescaling it away)
+    ranks = np.arange(1, n_multi + 1, dtype=np.float64)
+
+    def tail_sum(a):
+        return np.maximum((heaviest - 1) / ranks ** a, 1).sum()
+
+    lo, hi = 0.1, 3.0
+    for _ in range(60):
+        mid = (lo + hi) / 2
+        if tail_sum(mid) > extra_total:
+            lo = mid
+        else:
+            hi = mid
+    tail = np.maximum(np.round((heaviest - 1) / ranks ** lo), 1)
+    # exact-total correction on the mid ranks
+    diff = int(extra_total - tail.sum())
+    i = n_multi // 4
+    while diff != 0:
+        step = 1 if diff > 0 else -1
+        if tail[i] + step >= 1:
+            tail[i] += step
+            diff -= step
+        i = (i + 1) % n_multi
+    counts = np.ones(n_identities, dtype=np.int64)
+    counts[:n_multi] += tail.astype(np.int64)
+    rng = np.random.RandomState(seed)
+    rng.shuffle(counts)
+    assert counts.sum() == n_images, counts.sum()
+    return counts

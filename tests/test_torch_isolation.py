@@ -55,7 +55,9 @@ def test_port_imports_no_jax_and_no_facenet_tpu():
     assert result['bad'] == []
     for name in ('ops.stem', 'ops.cuda_build', 'utils.timing',
                  'detectors.mtcnn.pnet', 'models.irv1_fast', 'tools',
-                 *(f'tools.{tool}' for tool in TOOLS)):
+                 *(f'tools.{tool}' for tool in TOOLS), 'lfw',
+                 'utils.tfrecord', 'apps.embeddings', 'apps.validate_on_lfw',
+                 'bench'):
         assert f'facenet_tpu_torch.{name}' in result['names'], name
 
 
