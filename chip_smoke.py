@@ -142,8 +142,29 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      0.99999); 64 rows match the unfused float32 module on the CPU (cosine
      >= 0.995); wall seconds of image making, forwards and the report;
  21. the port's bench through its main() (32 chunks x 128 back to back,
-     facenet_tpu_torch/bench.py): its device-busy line and its last JSON
-     line (value > 0, serving 'bf16') printed here.
+     facenet_tpu_torch/bench.py), int8 first, then bf16: its two
+     device-busy lines and its last JSON line (value > 0, the faster path's
+     rate, serving 'int8' or 'bf16') printed here;
+ 22. the int8 GEMM (im2col + torch._int_mm, ops/int8_conv.py) against its
+     plain version (F.conv2d in float64) on every distinct int8 conv shape
+     of full-width IRv1 (every conv quantized) and IRv2, as their int8
+     forwards run them, at batch 8 with random int8 inputs and weights:
+     the int32 sums equal, max |d| = 0; then, at batch 128, the device ms
+     of the three costliest shapes' quantize, im2col, GEMM and rescale,
+     the whole int8 conv, and cuDNN's bf16 conv of the same shape;
+ 23. full-width IRv1 int8 serving through FaceNet(quantize='int8'),
+     calibrated on 32 images, built from phase 4's bundle, under
+     stem='cudnn' and 'fused', 4 batches of 128, every launch count reset
+     just before each and read just after: exactly 4 B5 launches under
+     'fused' and none under 'cudnn'; finite unit-norm rows; the min cosine
+     against bf16 under the same stem; per batch of 128, in turns, host-
+     issued ms and device busy ms of the four (bf16 and int8 under each
+     stem); a profiler breakdown of one int8 forward;
+ 24. full-width IRv2 (default config, 512-d, init_variables(seed=0))
+     through FaceNet in bf16 and int8 at batch 128: no kernel launch;
+     finite unit-norm rows; bf16 against the unfused float32 module (no
+     TF32) at min cosine >= 0.995; int8 against bf16 (printed); host-issued
+     and device busy ms per batch of 128 of both.
 
 The GPU machine may lack PIL, yaml, h5py, sklearn and click, so nothing
 here imports them: the model bundle is built in memory, images and scenes
@@ -169,6 +190,7 @@ import numpy as np
 H100_FP32_FLOPS = 67e12     # FP32 outside the tensor cores, H100 SXM
 H100_BF16_FLOPS = 989e12    # dense bf16 tensor cores, H100 SXM
 H100_TF32_FLOPS = 495e12    # dense TF32 tensor cores, H100 SXM
+H100_INT8_OPS = 1979e12     # dense int8 tensor cores, H100 SXM
 H100_HBM_BYTES = 3.35e12    # HBM3 bytes/s, H100 SXM
 SCENE = (480, 640)          # the cascade's default geometry
 ROTATE = 6                  # B2 input copies: 6 x 22 MB, past the 50 MB L2
@@ -539,7 +561,7 @@ def detection_phases(rng, libs, bundle):
                            max_face=200) for _ in range(64)]
     images = np.stack([scene[0] for scene in scenes])
     truth = [scene[1] for scene in scenes]
-    facenet = FaceNet(bundle, device='cuda')
+    facenet = FaceNet(device='cuda', bundle=bundle)
     pipe = FacePipeline(facenet, image_shape=SCENE, align='landmarks',
                         num_faces=2)
     det = pipe.backend
@@ -589,7 +611,7 @@ def detection_phases(rng, libs, bundle):
         found = cpu_det._detect(x)
         crops = align_by_landmarks(x.float(), found['landmarks'][:, :2], 160,
                                    method='dense')
-        ref_emb = FaceNet(bundle, device='cpu').dispatch(
+        ref_emb = FaceNet(device='cpu', bundle=bundle).dispatch(
             torch.clamp(crops + 0.5, 0, 255).to(torch.uint8)
             .reshape(8, 160, 160, 3)).reshape(4, 2, -1)
     ref = {k: found[k][:, :2].numpy()
@@ -1428,20 +1450,261 @@ def slice7_phases(rng, context):
 
     # 21. the port's bench
     print(f'[21] the port\'s bench: python -m facenet_tpu_torch.bench '
-          f'(32 chunks x 128 back to back) on {smi}')
+          f'(32 chunks x 128 back to back, int8 then bf16) on {smi}')
     reset_launches()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         bench.main([])
     counts = read_launches()
     lines = out.getvalue().strip().splitlines()
-    busy, last = json.loads(lines[-2]), json.loads(lines[-1])
+    busy = [json.loads(line) for line in lines if '"serving"' in line
+            and '"chunk"' in line]
+    last = json.loads(lines[-1])
     require(counts == only(), f'expected no kernel launches, got {counts}')
+    require([b['serving'] for b in busy] == ['int8', 'bf16'],
+            f'expected the int8 and bf16 busy lines, got {busy}')
     require(last.get('metric') == bench.METRIC and last['value'] > 0
-            and last.get('serving') == 'bf16' and 'error' not in last,
-            f'bad bench line {last}')
-    print(f'  {lines[-2]}')
+            and last.get('serving') in ('int8', 'bf16')
+            and last['value'] == max(last['int8_img_per_s'],
+                                     last['bf16_img_per_s'])
+            and 'error' not in last, f'bad bench line {last}')
+    for b in busy:
+        print(f'  {json.dumps(b)}')
     print(f'  {lines[-1]}')
+
+
+def record_int8_convs(fn):
+    """The int8 convs one call of fn() runs, in order: [(C, H, W, (oc, ic,
+    kh, kw), stride, padding)], through a wrapper on
+    `ops.int8_conv.int8_conv` that is removed again."""
+    from facenet_tpu_torch.ops import int8_conv
+
+    seen = []
+    conv = int8_conv.int8_conv
+
+    def recording(x, w, stride=1, padding='SAME'):
+        seen.append((*x.shape[1:], w['shape'], stride, padding))
+        return conv(x, w, stride, padding)
+
+    int8_conv.int8_conv = recording
+    try:
+        fn()
+    finally:
+        int8_conv.int8_conv = conv
+    return seen
+
+
+def int8_conv_work(key):
+    """(input elements, output elements, multiply-adds) of one image
+    through the int8 conv `key`."""
+    c, h, w, (oc, ic, kh, kw), stride, padding = key
+    oh = h if padding == 'SAME' else (h - kh) // stride + 1
+    ow = w if padding == 'SAME' else (w - kw) // stride + 1
+    return c * h * w, oh * ow * oc, oh * ow * oc * ic * kh * kw
+
+
+def int8_gemm_times(rng, key, batch, smi):
+    """Device ms of one int8 conv's parts at `batch` (quantize, im2col,
+    GEMM, rescale) beside cuDNN's bf16 conv of the same shape; returns the
+    line to print."""
+    import torch
+    import torch.nn.functional as F
+
+    from facenet_tpu_torch.ops import int8_conv
+    from facenet_tpu_torch.utils.timing import device_ms
+
+    c, h, w, (oc, ic, kh, kw), stride, padding = key
+    k = rng.integers(-127, 128, (oc, ic, kh, kw)).astype(np.int8)
+    entry = int8_conv.quantized_entry(k, np.full(oc, 1e-3), 0.05,
+                                      np.zeros(oc), 'cuda')
+    x = torch.randn(batch, c, h, w, device='cuda').to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    kb = torch.from_numpy(k).cuda().to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    bias = torch.zeros(oc, device='cuda', dtype=torch.bfloat16)
+    xq = int8_conv.quantize(x, entry['xs'])
+    rows, _ = int8_conv.patch_rows(xq, entry['shape'], stride, padding)
+    rows = F.pad(rows, (0, entry['kq'].shape[1] - rows.shape[1])).contiguous()
+    sums = int8_conv.int8_sums(xq, entry, stride, padding)
+    pad = 'same' if padding == 'SAME' else 0
+    with torch.inference_mode():
+        parts = {
+            'quantize': lambda: int8_conv.quantize(x, entry['xs']),
+            'im2col': lambda: int8_conv.patch_rows(
+                xq, entry['shape'], stride, padding)[0].contiguous(),
+            'GEMM': lambda: torch._int_mm(rows, entry['kq'].t()),
+            'rescale': lambda: torch.mul(sums, entry['wxs']).add_(
+                entry['b']).to(torch.bfloat16),
+            'whole int8 conv': lambda: int8_conv.int8_conv(
+                x, entry, stride, padding),
+            'cuDNN bf16 conv': lambda: F.conv2d(x, kb, bias, stride, pad)}
+        times = {name: device_ms(fn, 20)[0] for name, fn in parts.items()}
+    m, kk = rows.shape
+    ops = 2.0 * m * oc * ic * kh * kw
+    return (f'  {kh}x{kw}/{stride} {padding} {ic}->{oc} on {c}x{h}x{w}, '
+            f'batch {batch} (M={m}, K={kk}, N={entry["kq"].shape[0]}; '
+            f'{ops:.4e} int8 operations, {ops / H100_INT8_OPS * 1e3:.4f} ms '
+            f'at the int8 tensor-core rate): ' + ', '.join(
+                f'{name} {ms:.4f} ms' for name, ms in times.items())
+            + f' on {smi}')
+
+
+def serving_times(nets, batch):
+    """{name: (host-issued ms, device busy ms)} per call of each net on
+    `batch`, measured in turns (the names, then reversed)."""
+    from facenet_tpu_torch.utils.timing import cuda_ms, device_busy
+
+    issued, busy = {}, {}
+    for name in (*nets, *reversed(nets)):
+        net = nets[name]
+        issued.setdefault(name, []).append(
+            cuda_ms(lambda: net.dispatch(batch), reps=20, warmup=5)[0])
+        busy.setdefault(name, []).append(
+            device_busy(lambda: net.dispatch(batch), 5)[0])
+    return issued, busy
+
+
+def slice8_phases(rng, context):
+    """Phases 22-24 (see the module docstring): the int8 GEMM against its
+    plain version, IRv1 int8 serving under both stems, IRv2 in bf16 and
+    int8; launch counts reset just before each main path and read just
+    after."""
+    import torch
+
+    from facenet_tpu_torch import FaceNet
+    from facenet_tpu_torch.config import Config
+    from facenet_tpu_torch.export import ModelBundle
+    from facenet_tpu_torch.models import inception_resnet_v2 as irv2
+    from facenet_tpu_torch.ops import int8_conv
+    from facenet_tpu_torch.utils.timing import spread as _spread
+
+    smi, bundle1 = context['smi'], context['bundle']
+    batches = [torch.from_numpy(rng.integers(
+        0, 256, (128, 160, 160, 3), dtype=np.uint8)).cuda() for _ in range(4)]
+    calib = batches[0][:32].cpu().numpy()
+    variables2 = irv2.init_variables(seed=0)
+    bundle2 = ModelBundle(variables2, {'model_class': 'InceptionResnetV2',
+                                       'config': None, 'image_size': 160,
+                                       'normalization': 0})
+
+    def net(bundle, **options):
+        return FaceNet(Config({'normalize': True, **options}), device='cuda',
+                       bundle=bundle)
+
+    int8 = {'quantize': 'int8', 'calib': calib}
+    nets1 = {'bf16 cudnn': context['facenet'],
+             'int8 cudnn': net(bundle1, **int8),
+             'bf16 fused': net(bundle1, stem='fused'),
+             'int8 fused': net(bundle1, stem='fused', **int8)}
+    nets2 = {'bf16': net(bundle2), 'int8': net(bundle2, **int8)}
+
+    # 22. the int8 GEMM against its plain version on every int8 conv shape
+    print('[22] int8 GEMM (im2col + torch._int_mm) vs its plain version '
+          '(F.conv2d in float64) on every int8 conv shape of full-width '
+          'IRv1 (stem cudnn, every conv quantized) and IRv2, batch 8, '
+          'random int8 inputs and weights (cuda)')
+    keys = set()
+    with torch.inference_mode():
+        for family, n in (('IRv1', nets1['int8 cudnn']),
+                          ('IRv2', nets2['int8'])):
+            convs = record_int8_convs(lambda: n.dispatch(batches[0][:8]))
+            keys.update(convs)
+            work = np.array([int8_conv_work(k) for k in convs], np.float64)
+            print(f'  {family}: {len(convs)} int8 convs a forward; an image '
+                  f'{work[:, 0].sum():.4e} input and {work[:, 1].sum():.4e} '
+                  f'output elements, {work[:, 2].sum():.4e} multiply-adds')
+    worst = 0
+    for key in sorted(keys, key=str):
+        c, h, w, shape, stride, padding = key
+        oc, ic, kh, kw = shape
+        k = rng.integers(-127, 128, shape).astype(np.int8)
+        entry = int8_conv.quantized_entry(k, np.ones(oc), 1.0, np.zeros(oc),
+                                          'cuda')
+        xq = torch.from_numpy(rng.integers(-127, 128, (8, h, w, c))
+                              .astype(np.int8)).cuda()
+        got = int8_conv.int8_sums(xq, entry, stride, padding)
+        torch.cuda.synchronize()
+        want = int8_conv.int8_sums_plain(xq, entry, stride, padding)
+        err = int((got.long() - want.long()).abs().max())
+        worst = max(worst, err)
+        require(got.dtype == torch.int32 and got.shape == want.shape
+                and err == 0, f'int8 GEMM != plain on {key}: max |d| {err}')
+    print(f'  {len(keys)} distinct shapes, max |GEMM - plain| {worst} '
+          '(int32 sums)')
+
+    for key in sorted(keys, key=lambda k: int8_conv_work(k)[2],
+                      reverse=True)[:3]:
+        print(int8_gemm_times(rng, key, 128, smi))
+
+    # 23. IRv1 int8 serving through FaceNet under both stems
+    print("[23] full-width IRv1 int8 serving through FaceNet(quantize="
+          "'int8', calibrated on 32 images) under stem='cudnn' and 'fused', "
+          '4 batches of 128 (cuda)')
+    with torch.inference_mode():
+        for stem, launches in (('cudnn', 0), ('fused', 4)):
+            q8, bf = nets1[f'int8 {stem}'], nets1[f'bf16 {stem}']
+            reset_launches()
+            emb = torch.cat([q8.dispatch(b) for b in batches])
+            torch.cuda.synchronize()
+            counts = read_launches()
+            require(counts == only(stem_fused=launches),
+                    f"int8 stem='{stem}': expected {launches} stem_fused "
+                    f'launches alone, got {counts}')
+            ref = torch.cat([bf.dispatch(b) for b in batches])
+            norms = emb.norm(dim=1)
+            require(tuple(emb.shape) == (512, 512)
+                    and bool(emb.isfinite().all())
+                    and float((norms - 1).abs().max()) < 1e-5,
+                    f"int8 stem='{stem}': embeddings not finite and unit-norm")
+            cos = float((emb * ref).sum(dim=1).min())
+            print(f"  stem='{stem}': kernel launches {counts}; finite "
+                  f'unit-norm rows; min cosine int8 vs bf16 {cos:.6f}')
+    issued, busy = serving_times(nets1, batches[0])
+    print(f'  per batch of 128 on {smi} (in turns), as the host issues it: '
+          + '; '.join(f'{name} {_spread(t)} ms' for name, t in issued.items())
+          + "; device busy (torch.profiler, the sum of the kernels' "
+          'durations over 5 batches): '
+          + '; '.join(f'{name} {_spread(t)} ms' for name, t in busy.items()))
+    device_breakdown(lambda: nets1['int8 cudnn'].dispatch(batches[0]), 10)
+
+    # 24. IRv2 through FaceNet in bf16 and int8
+    print('[24] full-width IRv2 (default config, 512-d, init_variables('
+          'seed=0)) through FaceNet in bf16 and int8, batch 128 (cuda)')
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    matmul_precision = torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision('highest')
+    try:
+        unfused = irv2.InceptionResnetV2().from_flax_variables(variables2)
+        unfused = unfused.cuda().eval()
+        with torch.inference_mode():
+            ref = unfused(batches[1]).cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        torch.set_float32_matmul_precision(matmul_precision)
+    del unfused
+    reset_launches()
+    served = {name: n.evaluate(batches[1]) for name, n in nets2.items()}
+    counts = read_launches()
+    require(counts == only(), f'IRv2: expected no kernel launches, got '
+            f'{counts}')
+    for name, emb in served.items():
+        norms = np.linalg.norm(emb, axis=1)
+        require(emb.shape == (128, 512) and np.isfinite(emb).all()
+                and np.abs(norms - 1).max() < 1e-5,
+                f'IRv2 {name}: embeddings not finite and unit-norm')
+    cos_ref = (served['bf16'] * ref).sum(1) / np.linalg.norm(ref, axis=1)
+    cos8 = (served['int8'] * served['bf16']).sum(1)
+    print(f'  bf16 fused vs float32 unfused: min cosine {cos_ref.min():.6f}; '
+          f'int8 vs bf16: min cosine {cos8.min():.6f}; kernel launches '
+          f'{counts}')
+    require(cos_ref.min() >= 0.995,
+            f'IRv2 min cosine {cos_ref.min()} < 0.995 against float32')
+    issued, busy = serving_times(nets2, batches[0])
+    print(f'  per batch of 128 on {smi} (in turns), as the host issues it: '
+          + '; '.join(f'{name} {_spread(t)} ms' for name, t in issued.items())
+          + '; device busy: '
+          + '; '.join(f'{name} {_spread(t)} ms' for name, t in busy.items()))
 
 
 def main():
@@ -1525,7 +1788,7 @@ def main():
     bundle = ModelBundle(variables, {'model_class': 'InceptionResnetV1',
                                      'config': None, 'image_size': 160,
                                      'normalization': 0})
-    facenet = FaceNet(bundle, device='cuda')
+    facenet = FaceNet(device='cuda', bundle=bundle)
     require(facenet.embedding_size == 512, 'embedding size is not 512')
     images = rng.integers(0, 256, (128, 160, 160, 3), dtype=np.uint8)
     served = facenet.evaluate(images)
@@ -1658,9 +1921,11 @@ def main():
         'library_ms': library_ms,
     }
     context, detection = detection_phases(rng, libs, bundle)
-    context.update(smi=smi, variables=variables, facenet=facenet)
+    context.update(smi=smi, variables=variables, facenet=facenet,
+                   bundle=bundle)
     slice3 = slice3_phases(rng, libs, context)
     slice7_phases(rng, context)
+    slice8_phases(rng, context)
 
     print(f'total {time.monotonic() - started:.1f} s')
     print(json.dumps({'kernels': [pair_entry] + detection + slice3}))

@@ -157,10 +157,14 @@ def msgpack_restore(data):
     return _unchunk(tree)
 
 
-def load_model(path):
-    """Load an IRv1 bundle saved by ``facenet_tpu.export.save_model``.
+MODEL_CLASSES = ('InceptionResnetV1', 'InceptionResnetV2')
 
-    :raises NotImplementedError: for an Inception-ResNet-v2 bundle
+
+def load_model(path):
+    """Load a bundle saved by ``facenet_tpu.export.save_model``.
+
+    :raises NotImplementedError: for a model class other than
+        `MODEL_CLASSES`
     """
     import yaml
 
@@ -169,10 +173,10 @@ def load_model(path):
         meta = yaml.safe_load(f)
 
     bundle = ModelBundle(variables={}, meta=meta)
-    if bundle.model_class != 'InceptionResnetV1':
+    if bundle.model_class not in MODEL_CLASSES:
         raise NotImplementedError(
             f'{bundle.model_class} bundles are not supported by the PyTorch '
-            'port yet (only InceptionResnetV1)')
+            f'port (only {", ".join(MODEL_CLASSES)})')
 
     variables = msgpack_restore((path / PARAMS_FILE).read_bytes())
     return ModelBundle(variables=variables, meta=meta)

@@ -20,7 +20,8 @@ residual scales are rounded to that dtype, the bottleneck matmul accumulates
 in float32, and activations run NCHW in channels_last memory. The
 convolutions are cuDNN work through ``F.conv2d``; with ``stem='fused'`` the
 prefix up to the first max pool runs as one hand-written kernel
-(`ops.stem.stem_forward`).
+(`ops.stem.stem_forward`). A tree quantized by `models.quantize` carries
+int8 entries, which `_conv` runs through `ops.int8_conv`.
 """
 
 from __future__ import annotations
@@ -32,6 +33,10 @@ import torch.nn.functional as F
 from facenet_tpu_torch.device import resolve_device
 from facenet_tpu_torch.models.inception_resnet_v1 import (BN_EPS,
                                                            check_input_config)
+from facenet_tpu_torch.models.quantize import (DEFAULT_SKIP, _Calibration,
+                                               check_mode,
+                                               quantize_fast_params)
+from facenet_tpu_torch.ops import int8_conv
 from facenet_tpu_torch.ops.preprocessing import image_processing
 from facenet_tpu_torch.ops.stem import stem_forward
 
@@ -158,6 +163,25 @@ def _fold_numpy(variables, cfg):
     return out
 
 
+def to_torch(tree, dtype, device):
+    """A numpy fast-params tree as tensors on `device` in `dtype`: conv
+    kernels HWIO -> OIHW in channels_last memory, the bottleneck kernel
+    [in, out] -> [out, in]."""
+    def convert(node, name=None):
+        if isinstance(node, dict):
+            return {k: convert(v, k) for k, v in node.items()}
+        t = torch.from_numpy(np.array(node, np.float32))
+        if name == 'k' and t.ndim == 4:
+            t = t.permute(3, 2, 0, 1)                    # HWIO -> OIHW
+            return t.to(device=device, dtype=dtype).contiguous(
+                memory_format=torch.channels_last)
+        if name == 'k':
+            t = t.t()                                    # [in, out] -> [out, in]
+        return t.to(device=device, dtype=dtype).contiguous()
+
+    return convert(tree)
+
+
 def build_fast_params(variables, config=None, dtype=torch.bfloat16,
                       device=None):
     """Fold + fuse a trained IRv1 variable tree into the fast-path params.
@@ -172,24 +196,15 @@ def build_fast_params(variables, config=None, dtype=torch.bfloat16,
     """
     device = resolve_device(device)
     cfg = check_input_config(config)
-    tree = _fold_numpy(variables, cfg)
-
-    def convert(node, name=None):
-        if isinstance(node, dict):
-            return {k: convert(v, k) for k, v in node.items()}
-        t = torch.from_numpy(np.array(node, np.float32))
-        if name == 'k' and t.ndim == 4:
-            t = t.permute(3, 2, 0, 1)                    # HWIO -> OIHW
-            return t.to(device=device, dtype=dtype).contiguous(
-                memory_format=torch.channels_last)
-        if name == 'k':
-            t = t.t()                                    # [in, out] -> [out, in]
-        return t.to(device=device, dtype=dtype).contiguous()
-
-    return convert(tree), cfg
+    return to_torch(_fold_numpy(variables, cfg), dtype, device), cfg
 
 
 def _conv(x, w, stride=1, padding='SAME'):
+    if 'kq' in w:
+        # int8 serving entry (models/quantize.py)
+        return int8_conv.int8_conv(x, w, stride, padding)
+    if 'tag' in w and _Calibration.active is not None:
+        _Calibration.active.record(w['tag'], x)
     return F.conv2d(x, w['k'], w['b'], stride,
                     'same' if padding == 'SAME' else 0)
 
@@ -199,9 +214,9 @@ def _crelu(x, w, stride=1, padding='SAME'):
 
 
 def _in_ch(w):
-    """Input width of a conv entry: the fused branch-head outputs are split
-    by what each consumer conv takes."""
-    return int(w['k'].shape[1])
+    """Input width of a (possibly int8) conv entry: the fused branch-head
+    outputs are split by what each consumer conv takes."""
+    return int(w['shape'][1] if 'kq' in w else w['k'].shape[1])
 
 
 def _scale(value, dtype):
@@ -320,12 +335,17 @@ class FastEmbedder:
     """Fused forward bound to one parameter set on one device.
 
     :param stem: 'cudnn' or 'fused', see `fast_forward`
+    :param quantize: None, or 'int8' for post-training int8 serving
+        (models/quantize.py), calibrated on `calib_images` (a uint8 batch).
+        Under ``stem='fused'`` the stem's convs stay bf16 (`STEM_SKIP`), so
+        the fused stem kernel runs on the int8 path too.
     """
 
     def __init__(self, variables, config=None, image_size=160,
                  normalization=0, dtype=torch.bfloat16, normalize=True,
-                 device=None, stem='cudnn'):
+                 device=None, stem='cudnn', quantize=None, calib_images=None):
         _check_stem(stem)
+        check_mode(quantize, calib_images)
         self.stem = stem
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -334,6 +354,16 @@ class FastEmbedder:
         self.image_size = int(image_size)
         self.normalization = int(normalization)
         self.normalize = bool(normalize)
+        if quantize:
+            self.params = quantize_fast_params(
+                self.params, self.cfg, calib_images, self.image_size,
+                self.normalization,
+                skip=STEM_SKIP if stem == 'fused' else DEFAULT_SKIP,
+                dtype=dtype)
+
+    @property
+    def embedding_size(self):
+        return int(self.cfg.output.size)
 
     def __call__(self, images):
         """uint8 [B, H, W, 3] (numpy or tensor) -> [B, D] float32 tensor on

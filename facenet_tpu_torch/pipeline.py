@@ -25,8 +25,8 @@ from facenet_tpu_torch.config import Config
 class FacePipeline:
     """Detect -> align -> embed over fixed-shape uint8 scene batches.
 
-    :param model: a `facenet_tpu_torch.FaceNet`, a model Config, an
-        `export.ModelBundle`, or an exported model directory
+    :param model: a `facenet_tpu_torch.FaceNet`, a model Config, or an
+        exported model directory
     :param image_shape: (H, W) of the cascade; letterbox inputs to it first
         (detectors.mtcnn.letterbox.letterbox_batch)
     :param align: 'crop' | 'landmarks'

@@ -32,14 +32,22 @@ def test_bench_tiny_on_cpu_prints_its_lines():
     assert proc.returncode == 0, proc.stderr[-2000:]
     lines = proc.stdout.strip().splitlines()
     assert lines[-1] == 'IMPORTED []'
-    first, busy, last = (json.loads(line) for line in lines[-4:-1])
+    first, busy8, int8, busy16, last = (json.loads(line)
+                                        for line in lines[-6:-1])
     assert first['value'] == 0.0 and 'error' in first
-    assert busy['device'] == 'cpu'
-    assert busy['device_busy_ms_per_chunk'] == 'not measured'
+    for busy, serving in ((busy8, 'int8'), (busy16, 'bf16')):
+        assert busy['serving'] == serving and busy['device'] == 'cpu'
+        assert busy['device_busy_ms_per_chunk'] == 'not measured'
+    # int8 is measured first, and its line stands until bf16 is measured
+    assert int8['serving'] == 'int8' and 'bf16_img_per_s' not in int8
+    assert int8['value'] == int8['int8_img_per_s'] > 0 and 'error' not in int8
     assert last['metric'] == 'embeddings_per_sec_single_chip'
     assert last['unit'] == 'img/s' and last['value'] > 0
-    assert last['serving'] == 'bf16'
-    assert last['bf16_img_per_s'] == last['value']
+    assert last['int8_img_per_s'] == int8['int8_img_per_s']
+    assert last['value'] == max(last['int8_img_per_s'],
+                                last['bf16_img_per_s'])
+    assert last['serving'] == ('int8' if last['int8_img_per_s']
+                               >= last['bf16_img_per_s'] else 'bf16')
     assert last['vs_baseline'] == round(last['value'] / 297.0, 2)
     assert 'error' not in last
 

@@ -479,3 +479,90 @@ def test_stem_fused_kernel_matches_plain(batch):
     assert float((got.float() - want.float()).abs().max()) <= 0.01 * scale
     with pytest.raises(ValueError, match='contiguous'):
         stem.stem_forward(params, x.permute(0, 2, 1, 3))
+
+
+# int8 conv geometries of full-width IRv1 and IRv2 at their serving sizes
+# (chip_smoke.py phase 22 takes every one from the forwards themselves):
+# (c, h, w, oc, kh, kw, stride, padding)
+INT8_SHAPES = {
+    '1x1 block35 heads': (256, 17, 17, 96, 1, 1, 1, 'SAME'),
+    '3x3 SAME': (32, 17, 17, 48, 3, 3, 1, 'SAME'),
+    '3x3 VALID stem': (80, 38, 38, 192, 3, 3, 1, 'VALID'),
+    '3x3 stride 2': (320, 17, 17, 384, 3, 3, 2, 'VALID'),
+    '1x7': (128, 8, 8, 160, 1, 7, 1, 'SAME'),
+    '7x1': (160, 8, 8, 192, 7, 1, 1, 'SAME'),
+    '1x3': (192, 3, 3, 224, 1, 3, 1, 'SAME'),
+    '3x1': (224, 3, 3, 256, 3, 1, 1, 'SAME'),
+    '5x5': (48, 17, 17, 64, 5, 5, 1, 'SAME'),
+    '2x2 space-to-depth': (12, 80, 80, 32, 2, 2, 1, 'VALID'),
+    'K=27, padded to 32': (3, 160, 160, 32, 3, 3, 2, 'VALID'),
+    'K=45 N=12, padded': (5, 9, 9, 12, 3, 3, 1, 'SAME'),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', INT8_SHAPES)
+def test_int8_gemm_matches_plain(name):
+    """The int8 conv's GEMM path (im2col + torch._int_mm) against its plain
+    version (F.conv2d in float64) at batch 8 and at batch 1 (9 rows on the
+    3x3 grid, padded to what cuBLASLt takes): the int32 sums are equal."""
+    from facenet_tpu_torch.ops import int8_conv
+    _gpu()
+    c, h, w, oc, kh, kw, stride, padding = INT8_SHAPES[name]
+    rng = np.random.RandomState(sum(map(ord, name)))
+    k = rng.randint(-127, 128, (oc, c, kh, kw)).astype(np.int8)
+    entry = int8_conv.quantized_entry(k, np.ones(oc), 1.0, np.zeros(oc),
+                                      'cuda')
+    for batch in (8, 1):
+        xq = torch.from_numpy(rng.randint(-127, 128, (batch, h, w, c))
+                              .astype(np.int8)).cuda()
+        got = int8_conv.int8_sums(xq, entry, stride, padding)
+        torch.cuda.synchronize()
+        want = int8_conv.int8_sums_plain(xq, entry, stride, padding)
+        assert got.dtype == torch.int32 and got.shape == want.shape
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.cuda
+def test_int8_conv_on_the_card_matches_the_cpu():
+    """The whole int8 conv (quantize, GEMM, rescale) on the card equals the
+    CPU's (plain sums) on a bf16 input: the same integer sums, and the same
+    float32 rescale rounded to bf16."""
+    from facenet_tpu_torch.ops import int8_conv
+    _gpu()
+    rng = np.random.RandomState(3)
+    k = rng.randint(-127, 128, (64, 48, 5, 5)).astype(np.int8)
+    x = torch.from_numpy(rng.standard_normal((8, 48, 17, 17)).astype(
+        np.float32)).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+    entry = dict(ws=rng.uniform(1e-3, 2e-3, 64), xs=0.02,
+                 b=rng.standard_normal(64))
+    cpu = int8_conv.int8_conv(x, int8_conv.quantized_entry(k, **entry,
+                                                           device='cpu'))
+    card = int8_conv.int8_conv(x.cuda(), int8_conv.quantized_entry(
+        k, **entry, device='cuda'))
+    assert card.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(card.cpu(), cpu)
+
+
+def test_int8_conv_takes_the_plain_sums_on_cpu(monkeypatch):
+    """A CPU tensor goes to the plain version (the GEMM path is not
+    called); its output is a channels_last NCHW view in the input's dtype."""
+    from facenet_tpu_torch.ops import int8_conv
+
+    def refuse(*args, **kwargs):
+        raise AssertionError('the GEMM path ran on a CPU tensor')
+
+    monkeypatch.setattr(int8_conv, 'int8_sums', refuse)
+    rng = np.random.RandomState(4)
+    k = rng.randint(-127, 128, (16, 8, 3, 3)).astype(np.int8)
+    entry = int8_conv.quantized_entry(k, np.full(16, 1e-3), 0.05,
+                                      np.zeros(16), 'cpu')
+    x = torch.from_numpy(rng.standard_normal((2, 8, 9, 9)).astype(
+        np.float32)).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+    y = int8_conv.int8_conv(x, entry, 1, 'SAME')
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (2, 16, 9, 9)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match='stride 1'):
+        int8_conv.int8_conv(x, entry, 2, 'SAME')

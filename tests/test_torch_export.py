@@ -94,17 +94,29 @@ def test_msgpack_reader_scalars_and_chunks():
 
 
 def test_irv2_bundle_raises(tmp_path):
-    (tmp_path / export.MODEL_FILE).write_text(yaml.safe_dump(
-        {'model_class': 'InceptionResnetV2', 'config': None,
-         'image_size': 160, 'normalization': 0, 'version': 1}))
-    with pytest.raises(NotImplementedError, match='InceptionResnetV2'):
+    """An IRv2 bundle passes the class check (the port serves the family:
+    tests/test_torch_model_v2.py) and then needs its parameters; a bundle
+    of any other class raises before that."""
+    meta = {'model_class': 'InceptionResnetV2', 'config': None,
+            'image_size': 160, 'normalization': 0, 'version': 1}
+    (tmp_path / export.MODEL_FILE).write_text(yaml.safe_dump(meta))
+    with pytest.raises(FileNotFoundError, match=export.PARAMS_FILE):
+        export.load_model(tmp_path)
+    meta['model_class'] = 'SqueezeNet'
+    (tmp_path / export.MODEL_FILE).write_text(yaml.safe_dump(meta))
+    with pytest.raises(NotImplementedError, match='SqueezeNet'):
         export.load_model(tmp_path)
 
 
-def test_quantize_raises(bundle):
-    with pytest.raises(NotImplementedError, match='int8'):
+def test_quantize_raises(bundle, images):
+    """int8 serving needs calibration images, and int8 is the one mode."""
+    with pytest.raises(ValueError, match='calib'):
         facenet_tpu_torch.FaceNet(Config({'path': str(bundle),
                                           'quantize': 'int8'}), device='cpu')
+    with pytest.raises(ValueError, match='fp4'):
+        facenet_tpu_torch.FaceNet(Config({'path': str(bundle),
+                                          'quantize': 'fp4',
+                                          'calib': images}), device='cpu')
 
 
 def test_missing_path_raises():

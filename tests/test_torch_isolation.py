@@ -57,7 +57,9 @@ def test_port_imports_no_jax_and_no_facenet_tpu():
                  'detectors.mtcnn.pnet', 'models.irv1_fast', 'tools',
                  *(f'tools.{tool}' for tool in TOOLS), 'lfw',
                  'utils.tfrecord', 'apps.embeddings', 'apps.validate_on_lfw',
-                 'bench'):
+                 'bench', 'models.quantize', 'ops.int8_conv',
+                 'models.inception_resnet_v2', 'models.irv2_fast',
+                 'tools.validate_int8'):
         assert f'facenet_tpu_torch.{name}' in result['names'], name
 
 
