@@ -164,7 +164,44 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      through FaceNet in bf16 and int8 at batch 128: no kernel launch;
      finite unit-norm rows; bf16 against the unfused float32 module (no
      TF32) at min cosine >= 0.995; int8 against bf16 (printed); host-issued
-     and device busy ms per batch of 128 of both.
+     and device busy ms per batch of 128 of both;
+ 25. training: full-width IRv1 (default config, 512-d, the backbone from
+     init_variables(seed=0)) with the 8,631-way head of VGGFace2's train
+     identities, train_softmax.yaml's defaults (Adam eps 0.1, lr 0.05,
+     L2 5e-4), bf16 compute with float32 weights; 400 images (50
+     identities x 8) in 4 batches of 100, cycled for 20 softmax steps with
+     every launch count reset just before and read just after (none
+     expected): finite losses, the mean cross-entropy of the last 5 steps
+     below that of the first 5 (the total also holds the L2 term, which
+     falls with the weights alone); ms a step as the host issues it and as
+     the device's busy time, img/s, max_memory_allocated, a profiler
+     breakdown of one step;
+ 26. one step with center_factor 0.01 (the centers table moves in every
+     row of the batch's identities) and one triplet-only step on a
+     PKPipeline batch of 20 identities x 5 drawn from noise images (no
+     identity closer to itself than to the others): triplet loss > 0,
+     every BatchNorm bias of the backbone moved (the L2 term skips biases
+     and softmax_factor is 0, so their gradient is the triplet term's) and
+     the head's bias kept;
+ 27. one step of the same state on the card and on the CPU at batch 8
+     (cuDNN and cuBLAS without TF32), once in float32: every metric within
+     1e-4 relative, every leaf of the updated state within half its
+     largest update on the CPU (+1e-6), the float32 backward through
+     train-mode BatchNorm being ill-conditioned; once in float64 (weights,
+     statistics and Adam too; the losses keep their float32 casts): every
+     metric within 1e-5 relative, every leaf within 1e-5 of its largest
+     update (+1e-12);
+ 28. checkpoint and resume under cudnn.deterministic: 2 steps from a
+     shuffled BatchLoader, save with its cursor, the next step; restore
+     into a fresh trainer: the cursor's next batch is the same batch, and
+     the next step's loss (rtol 1e-6) and parameters (1e-6) equal the
+     uninterrupted run's;
+ 29. ValidateCallback on phase 25's state, 1,040 held-out images, 10 folds,
+     with the launch counts reset just before and read just after: exactly
+     30 B1 launches; finite report;
+ 30. save_model of the trained backbone, load_model, FaceNet on the card:
+     min cosine >= 0.995 against the trainer's embedding_forward, no
+     kernel launch.
 
 The GPU machine may lack PIL, yaml, h5py, sklearn and click, so nothing
 here imports them: the model bundle is built in memory, images and scenes
@@ -503,7 +540,8 @@ def device_breakdown(fn, top=12):
     if busy_ms <= 0:
         print('  profiler: no device time recorded (not measured)')
         return
-    print(f'  profiler: {len(rows)} kernel names, device busy '
+    print(f'  profiler: {len(rows)} kernel names, '
+          f'{sum(e.count for e in rows)} launches, device busy '
           f'{busy_ms:.3f} ms of {wall_ms:.3f} ms wall '
           f'({busy_ms / wall_ms:.3f} busy share)')
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
@@ -1707,6 +1745,289 @@ def slice8_phases(rng, context):
           + '; '.join(f'{name} {_spread(t)} ms' for name, t in busy.items()))
 
 
+VGGFACE2_CLASSES = 8631     # train identities of VGGFace2, train_softmax.yaml's data
+
+
+def train_config(steps=20, **loss):
+    """apps/configs/train_softmax.yaml's defaults (built here: the card
+    machine may lack yaml), `steps` steps an epoch, `loss` over the
+    defaults."""
+    from facenet_tpu_torch.config import Config
+    return Config({
+        'image': {'size': 160, 'normalization': 0, 'random_crop': False,
+                  'random_flip': False},
+        'train': {'adam_epsilon': 0.1, 'remat': False, 'prefetch': 2,
+                  'epoch': {'size': steps},
+                  'learning_rate': {'schedule': [[100, 0.05], [200, 0.005],
+                                                 [300, 0.0005]]}},
+        'loss': {'softmax_factor': 1.0, 'center_alfa': 0.95,
+                 'center_factor': 0.0, 'triplet_margin': 0.2,
+                 'triplet_factor': 0.0, **loss},
+    })
+
+
+def slice9_phases(rng, context):
+    """Phases 25-30 (see the module docstring): full-width IRv1 training
+    with the 8,631-way head on the card; every launch count reset just
+    before each path and read just after."""
+    import tempfile
+    import types
+
+    import torch
+
+    from facenet_tpu_torch import FaceNet, callbacks, export
+    from facenet_tpu_torch.config import Config
+    from facenet_tpu_torch.dataset import BatchLoader, PKPipeline
+    from facenet_tpu_torch.models.inception_resnet_v1 import (BatchNorm,
+                                                              init_variables)
+    from facenet_tpu_torch.train.checkpoint import CheckpointManager
+    from facenet_tpu_torch.train.softmax import (SoftmaxTrainer, flat_leaves,
+                                                 step_on_devices)
+    from facenet_tpu_torch.utils.timing import cuda_ms, device_busy
+    from facenet_tpu_torch.utils.timing import spread as _spread
+
+    smi = context['smi']
+    started = time.monotonic()
+    # 400 images: 50 identities x 8 (a base image each plus noise), drawn
+    # among the head's 8,631 classes, shuffled into 4 batches of 100
+    pool = next(synthetic_batches(rng, 50, 8, 400))
+    ids = rng.choice(VGGFACE2_CLASSES, 50, replace=False).astype(np.int32)
+    order = rng.permutation(400)
+    images_np, labels_np = pool[0][order], ids[pool[1][order]]
+    held_out = list(synthetic_batches(rng, 40, 26, 100))
+
+    # 25. softmax steps at batch 100
+    print(f'[25] full-width IRv1 (default config, 512-d) + {VGGFACE2_CLASSES}'
+          '-way head, train_softmax.yaml defaults (Adam eps 0.1, lr 0.05), '
+          'bf16 compute / float32 weights, 20 softmax steps at batch 100 '
+          'over 4 cycled uint8 batches (cuda)')
+    t0 = time.monotonic()
+    trainer = SoftmaxTrainer(train_config(), VGGFACE2_CLASSES, device='cuda')
+    state = trainer.init_state(seed=0)
+    backbone0 = init_variables(seed=0)['params']['Conv2d_1a_3x3']['conv']
+    require(np.array_equal(state.model.backbone.to_flax_variables()['params']
+                           ['Conv2d_1a_3x3']['conv']['kernel'],
+                           backbone0['kernel']),
+            'the trainer does not start from init_variables(seed=0)')
+    cards = [trainer.placed(images_np[i:i + 100], labels_np[i:i + 100])
+             for i in range(0, 400, 100)]
+    print(f'  state made in {time.monotonic() - t0:.1f} s on {smi}: '
+          f'{sum(p.numel() for p in state.model.parameters()):,} parameters')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.monotonic()
+    losses, entropies = [], []
+    for i in range(20):
+        state, metrics = trainer.step_fn(state, *cards[i % 4])
+        losses.append(metrics['loss'])
+        entropies.append(metrics['cross_entropy'])
+    losses = [float(v) for v in losses]
+    entropies = [float(v) for v in entropies]
+    run_s = time.monotonic() - t0
+    counts = read_launches()
+    require(counts == only(), f'training launched kernels: {counts}')
+    first, last = np.mean(entropies[:5]), np.mean(entropies[-5:])
+    print(f'  losses {" ".join(f"{v:.3f}" for v in losses)}')
+    print(f'  cross-entropies {" ".join(f"{v:.3f}" for v in entropies)}')
+    print(f'  cross-entropy: mean of the first 5 {first:.4f}, of the last 5 '
+          f'{last:.4f}; 20 steps in {run_s:.2f} s wall on {smi} (first '
+          f'steps included); kernel launches {counts}')
+    require(np.isfinite(losses).all() and last < first,
+            f'loss not finite or cross-entropy not falling: {first} -> '
+            f'{last}')
+    peak = torch.cuda.max_memory_allocated()
+
+    def step():
+        trainer.step_fn(state, *cards[0])
+
+    ms, windows = cuda_ms(step, reps=5, warmup=1)
+    busy, wall, _ = device_busy(step, 3)
+    print(f'  on {smi}: {ms:.3f} ms per step as the host issues it '
+          f'(windows {_spread(windows)}) = {100e3 / ms:.1f} img/s; device '
+          f'busy {busy:.3f} ms per step (torch.profiler, 3 steps, '
+          f'{busy / wall:.3f} of {wall:.3f} ms wall) = '
+          f'{100e3 / busy:.1f} img/s at the device busy time; '
+          f'max_memory_allocated {peak / 2 ** 30:.2f} GiB')
+    device_breakdown(step, 10)
+
+    # 26. center and triplet steps
+    print('[26] one step with center_factor 0.01, one triplet-only step '
+          '(softmax_factor 0, triplet_factor 1) on a PKPipeline 20 x 5 '
+          'batch (cuda)')
+    center = SoftmaxTrainer(train_config(center_factor=0.01),
+                            VGGFACE2_CLASSES, device='cuda')
+    c_state = center.init_state(seed=0)
+    c_state, metrics = center.step_fn(c_state, *cards[0])
+    moved_rows = int((c_state.centers.abs().sum(dim=1) > 0).sum())
+    want_rows = len(np.unique(labels_np[:100]))
+    print(f'  center step: loss {float(metrics["loss"]):.4f}, center_loss '
+          f'{float(metrics["center_loss"]):.4f}, {moved_rows} center rows '
+          f'moved ({want_rows} identities in the batch)')
+    require(np.isfinite(float(metrics['loss'])) and moved_rows == want_rows,
+            'center step: loss not finite or the table did not move')
+    del center, c_state
+    # noise images, 20 identities x 8: no identity is closer to itself
+    # than to the others, so semi-hard triplets exist from the start
+    noise = rng.integers(0, 256, (160, 160, 160, 3)).astype(np.uint8)
+    classes = [types.SimpleNamespace(files=[str(i) for i in
+                                            range(8 * c, 8 * c + 8)],
+                                     nrof_images=8) for c in range(20)]
+    pk = PKPipeline(lambda f: noise[int(f)], classes,
+                    Config({'nrof_classes_per_batch': 20,
+                            'nrof_examples_per_class': 5}), seed=0)
+    pk_images, pk_labels = next(pk)
+    triplet = SoftmaxTrainer(train_config(softmax_factor=0.0,
+                                          triplet_factor=1.0),
+                             VGGFACE2_CLASSES, device='cuda')
+    t_state = triplet.init_state(seed=0)
+    norms = [m for m in t_state.model.backbone.modules()
+             if isinstance(m, BatchNorm)]
+    biases = [m.bias.detach().clone() for m in norms]
+    head_bias = t_state.model.logits.bias.detach().clone()
+    t_state, metrics = triplet.step_fn(
+        t_state, *triplet.placed(pk_images, ids[pk_labels]))
+    moved = sum(not torch.equal(m.bias, b) for m, b in zip(norms, biases))
+    head_kept = torch.equal(t_state.model.logits.bias, head_bias)
+    print(f'  triplet step on {pk_images.shape[0]} noise images of '
+          f'{len(np.unique(pk_labels))} identities: triplet_loss '
+          f'{float(metrics["triplet_loss"]):.4f}, loss '
+          f'{float(metrics["loss"]):.4f}; {moved} of {len(norms)} BatchNorm '
+          f'biases moved (their gradient comes from the triplet term '
+          f'alone), the head\'s bias {"kept" if head_kept else "moved"}')
+    require(float(metrics['triplet_loss']) > 0 and moved == len(norms)
+            and head_kept, 'triplet step: loss 0 or no gradient through it')
+    del triplet, t_state
+
+    # 27. the card against the CPU, float32 and float64
+    print('[27] one step, full width, batch 8, from the same state on the '
+          'card and on the CPU (TF32 off), in float32 and in float64')
+    bounds = {torch.float32: (1e-4, 1e-6, 0.5),
+              torch.float64: (1e-5, 1e-12, 1e-5)}
+    for dtype, (rtol, atol, bound) in bounds.items():
+        t0 = time.monotonic()
+        (card, cpu), worst, moved = step_on_devices(
+            train_config(1), VGGFACE2_CLASSES, images_np[:8], labels_np[:8],
+            dtype=dtype, atol=atol)
+        print(f'  {dtype}: losses card {card} cpu {cpu}')
+        print(f'  {dtype}: worst leaf |card - cpu| - {atol:g} = {worst:.3e} '
+              f'of that leaf\'s largest update (largest update '
+              f'{moved:.3e}); {time.monotonic() - t0:.1f} s on {smi} and '
+              f'the host')
+        for key, value in cpu.items():
+            require(abs(card[key] - value) <= rtol * abs(value) + atol,
+                    f'{dtype}: card {key} != cpu')
+        require(worst <= bound,
+                f'{dtype}: card update != cpu update ({worst} > {bound})')
+
+    # 28. checkpoint and resume
+    print('[28] checkpoint after 2 steps (shuffled BatchLoader over the 400 '
+          'images), restore into a fresh trainer, the next step on both '
+          '(cudnn.deterministic)')
+    deterministic = (torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    files = [str(i) for i in range(400)]
+
+    def loader(**kw):
+        return BatchLoader(files, labels_np, lambda f: images_np[int(f)],
+                           100, shuffle=True, repeat=True,
+                           drop_remainder=True, num_workers=4, seed=3, **kw)
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            first = SoftmaxTrainer(train_config(), VGGFACE2_CLASSES,
+                                   device='cuda')
+            r_state = first.init_state(seed=0)
+            pipeline = loader()
+            stream = iter(pipeline)
+            for _ in range(2):
+                r_state, _ = first.step_fn(r_state,
+                                           *first.placed(*next(stream)))
+            mgr = CheckpointManager(Path(tmp) / 'checkpoints')
+            t0 = time.monotonic()
+            mgr.save(r_state.step, r_state, data_state=pipeline.state())
+            save_s = time.monotonic() - t0
+            nxt = next(stream)
+            r_state, m_want = first.step_fn(r_state, *first.placed(*nxt))
+            want = list(flat_leaves(r_state.model.to_flax_variables()))
+            want_loss = float(m_want['loss'])
+            del first, r_state
+
+            second = SoftmaxTrainer(train_config(), VGGFACE2_CLASSES,
+                                    device='cuda')
+            fresh = second.init_state(seed=1)
+            t0 = time.monotonic()
+            fresh, cursor = mgr.restore(fresh, with_data_state=True)
+            load_s = time.monotonic() - t0
+            resumed = next(iter(loader(start_state=cursor)))
+            require(np.array_equal(resumed[0], nxt[0])
+                    and np.array_equal(resumed[1], nxt[1]),
+                    'the restored cursor yields another batch')
+            fresh, m_got = second.step_fn(fresh, *second.placed(*resumed))
+            got = list(flat_leaves(fresh.model.to_flax_variables()))
+            diff = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+            got_loss = float(m_got['loss'])
+            print(f'  cursor {cursor}; save {save_s:.2f} s, restore '
+                  f'{load_s:.2f} s on {smi}; next step loss resumed '
+                  f'{got_loss:.6f} uninterrupted {want_loss:.6f}; max '
+                  f'|param diff| {diff:.3e} over {len(got)} leaves; step '
+                  f'{fresh.step}')
+            require(fresh.step == 3 and abs(got_loss - want_loss)
+                    <= 1e-6 * abs(want_loss) and diff <= 1e-6,
+                    f'resumed step != uninterrupted step ({diff})')
+            del second, fresh
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = deterministic
+
+    # 29. validation through B1
+    print('[29] ValidateCallback at an epoch end: the trained state of phase '
+          '25 on 1,040 held-out images (40 identities x 26), 10 folds, '
+          'metric 0, FAR 1e-3 (cuda)')
+    callback = callbacks.ValidateCallback(
+        forward_factory=trainer.embedding_forward,
+        batches_factory=lambda: iter(held_out), every_n_epochs=1,
+        max_nrof_epochs=1,
+        config=Config({'validate': {'metric': 0, 'nrof_folds': 10,
+                                    'far_target': 1e-3}}), device='cuda')
+    reset_launches()
+    t0 = time.monotonic()
+    validation = callback.on_epoch_end(0, state)
+    valid_s = time.monotonic() - t0
+    counts = read_launches()
+    print(f'  {valid_s:.2f} s on {smi}; kernel launches {counts}')
+    require(counts == only(pair_below_counts=30),
+            f'expected 30 pair_below_counts launches alone, got {counts}')
+    for crit, values in validation.dict.items():
+        require(all(np.isfinite(v) for v in values.values()),
+                f'non-finite report values in {crit}')
+        print(f'  {crit}: accuracy {values["accuracy"]:.5f}')
+
+    # 30. export and serve
+    print('[30] save_model of the trained backbone -> load_model -> FaceNet '
+          'on the card, 100 held-out images (cuda)')
+    with tempfile.TemporaryDirectory() as tmp:
+        export.save_model(tmp, state.model.backbone)
+        bundle = export.load_model(tmp)
+        require(bundle.model_class == 'InceptionResnetV1'
+                and bundle.image_size == 160, f'bundle meta {bundle.meta}')
+        reset_launches()
+        served = FaceNet(Config({'path': tmp, 'normalize': True}),
+                         device='cuda').evaluate(held_out[0][0])
+        counts = read_launches()
+    trained = trainer.embedding_forward(state)(held_out[0][0]).cpu().numpy()
+    cos = (served * trained).sum(1) / (np.linalg.norm(served, axis=1)
+                                       * np.linalg.norm(trained, axis=1))
+    print(f'  served {served.shape}, min cosine against the trainer\'s '
+          f'embedding_forward {cos.min():.6f}; kernel launches {counts}')
+    require(served.shape == (100, 512) and np.isfinite(served).all()
+            and cos.min() >= 0.995, f'exported model serves off: {cos.min()}')
+    require(counts == only(), f'serving launched kernels: {counts}')
+    print(f'  phases 25-30 in {time.monotonic() - started:.1f} s on {smi}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1926,6 +2247,7 @@ def main():
     slice3 = slice3_phases(rng, libs, context)
     slice7_phases(rng, context)
     slice8_phases(rng, context)
+    slice9_phases(rng, context)
 
     print(f'total {time.monotonic() - started:.1f} s')
     print(json.dumps({'kernels': [pair_entry] + detection + slice3}))

@@ -11,7 +11,9 @@ package imports on a machine without it.
 from __future__ import annotations
 
 import random
+import sys
 from collections.abc import Mapping
+from datetime import datetime
 from pathlib import Path
 
 import numpy as np
@@ -27,6 +29,11 @@ user_config = user_config_dir.joinpath('config.yaml')
 
 # directory for default trained model
 default_model_path = Path(__file__).parents[1].joinpath('models/default')
+
+
+def subdir():
+    """Timestamped run-directory name, ``%Y%m%d-%H%M%S``."""
+    return datetime.now().strftime('%Y%m%d-%H%M%S')
 
 
 def config_paths(app_file_name, custom_config_file=None):
@@ -273,4 +280,36 @@ def validate_on_lfw(app_file_name, options):
 
     cfg.seed_key = set_seed(cfg.seed)
     _write_provenance(cfg, cfg.logdir, app_file_name)
+    return cfg
+
+
+def train_softmax(options, app_file_name=None):
+    """Config for the train_softmax app: the run directory
+    ``<model.path>/<timestamp>`` with ``logs/`` inside, ``model.checkpoint``
+    expanded, ``train.epoch.max_nrof_epochs`` defaulting to the last
+    schedule row's epoch, the validation batch size and image settings
+    taken from the training ones, seeded RNGs, provenance written."""
+    app_file_name = app_file_name or sys.argv[0]
+    cfg = load_config(app_file_name, options)
+
+    path = Path(str(cfg.model.path)).expanduser()
+    cfg.model.path = path / subdir()
+
+    cfg.logs = Config()
+    cfg.logs.dir = cfg.model.path / 'logs'
+    cfg.logs.file = cfg.model.path.stem + '.log'
+
+    if cfg.model.checkpoint:
+        cfg.model.checkpoint = Path(str(cfg.model.checkpoint)).expanduser()
+
+    if not cfg.train.epoch.max_nrof_epochs:
+        cfg.train.epoch.max_nrof_epochs = cfg.train.learning_rate.schedule[-1][0]
+
+    if cfg.validate:
+        cfg.validate.batch_size = cfg.batch_size
+        cfg.validate.image.size = cfg.image.size
+        cfg.validate.image.normalization = cfg.image.normalization
+
+    cfg.seed_key = set_seed(cfg.seed)
+    _write_provenance(cfg, cfg.logs.dir, app_file_name)
     return cfg

@@ -2,14 +2,16 @@
 
 The directory-per-class `ImageClass`/`Database` index with h5 validity
 filtering and class/image subsampling, a PIL image loader with
-crop-or-pad to a fixed size, and `BatchLoader`, a threaded, prefetching,
-resumable pipeline of uint8 NHWC batches. PIL and h5py are imported only
-where files are read.
+crop-or-pad to a fixed size, `BatchLoader`, a threaded, prefetching,
+resumable pipeline of uint8 NHWC batches, and `PKPipeline`, the resumable
+P-classes x K-images batches of metric learning. PIL and h5py are imported
+only where files are read.
 """
 
 from __future__ import annotations
 
 import queue as queue_mod
+import random
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -147,10 +149,17 @@ class Database:
     def nrof_images(self):
         return sum(cls.nrof_images for cls in self.classes)
 
-    def batches(self, loader, batch_size):
-        """`BatchLoader` over (files, labels) in index order; the last
-        batch may be smaller."""
-        return BatchLoader(self.files, self.labels, loader, batch_size)
+    def batches(self, loader, batch_size, shuffle=False, repeat=False,
+                drop_remainder=False, num_workers=8, prefetch=2, seed=None,
+                start_state=None):
+        """`BatchLoader` over (files, labels): in index order by default
+        (the last batch may be smaller), shuffled per epoch from `seed`,
+        repeated, resumed from a `start_state` cursor."""
+        return BatchLoader(self.files, self.labels, loader, batch_size,
+                           shuffle=shuffle, repeat=repeat,
+                           drop_remainder=drop_remainder,
+                           num_workers=num_workers, prefetch=prefetch,
+                           seed=seed, start_state=start_state)
 
 
 DBase = Database
@@ -333,3 +342,90 @@ class BatchLoader:
                     pass
             except queue_mod.Empty:
                 pass
+
+
+class PKPipeline:
+    """P-classes x K-images equal batches, forever.
+
+    Yields (images [P*K, H, W, 3] uint8, labels [P*K] int32), class-major.
+    P and K come from ``config.nrof_classes_per_batch`` /
+    ``nrof_examples_per_class`` (default 20 and 5, written back into the
+    config); only classes with at least K images are drawn.
+
+    Resumable: batch b is drawn with ``random.Random(f'{seed}:{b}')`` — P
+    classes, then K images of each, all without replacement — so the
+    stream is a pure function of the batch counter and the seed, the same
+    stream the JAX package draws. `state()` is that counter; `start_state=`
+    continues it. Images load on a thread pool.
+    """
+
+    def __init__(self, loader, classes, config, seed=None, num_workers=8,
+                 start_state=None):
+        self.p = int(config.nrof_classes_per_batch or 20)
+        self.k = int(config.nrof_examples_per_class or 5)
+        config.nrof_classes_per_batch = self.p
+        config.nrof_examples_per_class = self.k
+
+        self.loader = loader
+        self.num_workers = num_workers
+        if seed is None:
+            seed = int(np.random.randint(0, 2 ** 31 - 1))
+        self.seed = int(seed)
+        self._batch = 0
+        if start_state:
+            self.seed = int(start_state.get('seed', self.seed))
+            self._batch = int(start_state.get('batch', 0))
+        self._iter = None
+
+        self.all_files = []
+        self.class_slices = []
+        self.usable = []
+        for idx, _class in enumerate(classes):
+            _class.index = idx
+            self.class_slices.append((len(self.all_files),
+                                      _class.nrof_images))
+            self.all_files.extend(_class.files)
+            if _class.nrof_images >= self.k:
+                self.usable.append(idx)
+
+    def state(self):
+        """Cursor for checkpointing; feed back via `start_state=`."""
+        return {'seed': self.seed, 'batch': self._batch}
+
+    def _sample(self, b):
+        """(file indices, labels) of batch b."""
+        rnd = random.Random(f'{self.seed}:{b}')
+        idx, labels = [], []
+        for ci in rnd.sample(self.usable, self.p):
+            start, n = self.class_slices[ci]
+            rows = rnd.sample(range(n), self.k)
+            idx.extend(start + r for r in rows)
+            labels.extend([ci] * self.k)
+        return idx, np.asarray(labels, dtype=np.int32)
+
+    def _batches(self):
+        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+            b = self._batch
+            while True:
+                idx, labels = self._sample(b)
+                images = list(pool.map(
+                    lambda i: self.loader(self.all_files[i]), idx))
+                # the cursor counts a batch once it is handed out
+                self._batch = b + 1
+                yield np.stack(images), labels
+                b += 1
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._iter is None:
+            self._iter = self._batches()
+        return next(self._iter)
+
+
+def pipeline_with_equal_batches(loader, classes, config, seed=None,
+                                num_workers=8, start_state=None):
+    """`PKPipeline` under the reference's name."""
+    return PKPipeline(loader, classes, config, seed=seed,
+                      num_workers=num_workers, start_state=start_state)

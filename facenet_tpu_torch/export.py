@@ -1,4 +1,4 @@
-"""Reading the JAX package's model bundles.
+"""Model bundles, read and written in the JAX package's format.
 
 A bundle is a directory:
 
@@ -6,11 +6,14 @@ A bundle is a directory:
       model.yaml        — architecture config + image preprocessing contract
       params.msgpack    — flax-serialized {params, batch_stats}
 
-``params.msgpack`` is read with this module's own decoder of flax's msgpack
-format: a nested map of names whose array leaves are msgpack ext type 1 (3
-for numpy scalars) holding a msgpack ``(shape, dtype name, C-order bytes)``
-triple; arrays above 1 GiB are split into ``__msgpack_chunked_array__``
-maps. ``yaml`` is imported only to read ``model.yaml``.
+``params.msgpack`` is read and written with this module's own codec of
+flax's msgpack format: a nested map of names whose array leaves are msgpack
+ext type 1 (3 for numpy scalars) holding a msgpack ``(shape, dtype name,
+C-order bytes)`` triple; arrays above 1 GiB are split into
+``__msgpack_chunked_array__`` maps (read only: the writer refuses such an
+array). ``yaml`` is imported only to read ``model.yaml``; `save_model`
+writes it with `config._yaml_lines`, so exporting needs no yaml. Both
+packages load a bundle either of them wrote.
 """
 
 from __future__ import annotations
@@ -155,6 +158,112 @@ def msgpack_restore(data):
     if reader.pos != len(reader.data):
         raise ValueError('trailing bytes after the msgpack object')
     return _unchunk(tree)
+
+
+def _pack(obj, out):
+    """Append the msgpack encoding of `obj` (dict, list, str, bytes,
+    non-negative int or numpy array: what a flax tree of arrays holds) to
+    `out`."""
+    def sized(value, codes):
+        for code, fmt in codes:
+            if value < 1 << (8 * struct.calcsize(fmt)):
+                out.extend(struct.pack('>B' + fmt[1:], code, value))
+                return
+        raise ValueError(f'msgpack object of size {value} is too large')
+
+    if isinstance(obj, dict):
+        if len(obj) < 16:
+            out.append(0x80 | len(obj))
+        else:
+            sized(len(obj), ((0xde, '>H'), (0xdf, '>I')))
+        for key, value in obj.items():
+            _pack(str(key), out)
+            _pack(value, out)
+    elif isinstance(obj, (list, tuple)):
+        if len(obj) < 16:
+            out.append(0x90 | len(obj))
+        else:
+            sized(len(obj), ((0xdc, '>H'), (0xdd, '>I')))
+        for value in obj:
+            _pack(value, out)
+    elif isinstance(obj, str):
+        data = obj.encode('utf-8')
+        if len(data) < 32:
+            out.append(0xa0 | len(data))
+        else:
+            sized(len(data), ((0xd9, '>B'), (0xda, '>H'), (0xdb, '>I')))
+        out.extend(data)
+    elif isinstance(obj, bytes):
+        sized(len(obj), ((0xc4, '>B'), (0xc5, '>H'), (0xc6, '>I')))
+        out.extend(obj)
+    elif isinstance(obj, int) and not isinstance(obj, bool) and obj >= 0:
+        if obj < 0x80:
+            out.append(obj)
+        else:
+            out.extend(struct.pack('>BQ', 0xcf, obj))
+    elif isinstance(obj, np.ndarray):
+        if obj.nbytes > 1 << 30:
+            raise ValueError('arrays above 1 GiB are not written')
+        payload = bytearray()
+        _pack([list(obj.shape), obj.dtype.name,
+               np.ascontiguousarray(obj).tobytes()], payload)
+        fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+        if len(payload) in fixext:
+            out.append(fixext[len(payload)])
+        else:
+            sized(len(payload), ((0xc7, '>B'), (0xc8, '>H'), (0xc9, '>I')))
+        out.extend(struct.pack('>b', _EXT_NDARRAY))
+        out.extend(payload)
+    else:
+        raise TypeError(f'cannot msgpack {type(obj).__name__}')
+
+
+def msgpack_serialize(tree):
+    """Encode a nested dict of numpy arrays as flax's msgpack bytes (the
+    reverse of `msgpack_restore`)."""
+    out = bytearray()
+    _pack(tree, out)
+    return bytes(out)
+
+
+def _yaml_nulls(tree):
+    """None as the YAML word ``null`` throughout a dict tree, so that
+    `config._yaml_lines` writes what yaml reads back as None."""
+    if isinstance(tree, dict):
+        return {key: _yaml_nulls(value) for key, value in tree.items()}
+    return 'null' if tree is None else tree
+
+
+def save_model(path, model):
+    """Write a bundle of the model's current weights that this package and
+    the JAX package both load.
+
+    :param model: an `InceptionResnetV1` or `InceptionResnetV2`; its class
+        name, config as given, image size and normalization are recorded
+    """
+    from facenet_tpu_torch.config import Config, _yaml_lines
+
+    path = Path(str(path)).expanduser()
+    path.mkdir(parents=True, exist_ok=True)
+
+    cfg = model.config
+    if isinstance(cfg, Config):
+        cfg = cfg.as_dict
+    elif cfg is not None:
+        cfg = dict(cfg)
+    meta = {
+        'model_class': type(model).__name__,
+        'config': cfg,
+        'image_size': int(model.image_size),
+        'normalization': int(model.normalization),
+        'version': 1,
+    }
+    lines = _yaml_lines(Config(_yaml_nulls(meta)))
+    (path / MODEL_FILE).write_text('\n'.join(lines) + '\n')
+
+    (path / PARAMS_FILE).write_bytes(
+        msgpack_serialize(model.to_flax_variables()))
+    return path
 
 
 MODEL_CLASSES = ('InceptionResnetV1', 'InceptionResnetV2')

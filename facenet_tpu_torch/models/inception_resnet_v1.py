@@ -1,4 +1,4 @@
-"""Inception-ResNet-v1 embedding network, eval mode (PyTorch).
+"""Inception-ResNet-v1 embedding network (PyTorch).
 
 The architecture of ``facenet_tpu.models.inception_resnet_v1`` with the same
 submodule names, so a flax ``{'params', 'batch_stats'}`` tree loads into it
@@ -10,12 +10,24 @@ without JAX:
   activation; head AvgPool 3x3 -> Dense (no bias) -> BatchNorm; L2
   normalization with eps 1e-10 at inference.
 
-BatchNorm is center-only (bias, no scale) with eps 1e-3 and runs on its
-running statistics; train-mode BN is not part of this module. Flax names
-hold dots ('Repeat.block35_1'), which torch forbids in module names, so
-each child is registered under an attribute name and keeps its flax name
-beside it.
-Activations are NCHW inside; the public forward takes NHWC images.
+BatchNorm is center-only (a trainable bias, no scale) with eps 1e-3. At
+inference it runs on its running statistics; with ``train=True`` it
+normalizes with the batch's statistics as flax 0.12 computes them
+(reductions in at least float32, the biased variance max(0, E[x^2] - E[x]^2)) and moves the
+running statistics by ra = 0.99 ra + 0.01 batch. Every conv and dense
+kernel carries L2(5e-4) weight decay, added to the loss by
+`l2_regularization`.
+
+Each layer computes in the dtype of its input and casts its parameters to
+it, as flax's ``dtype``/``param_dtype`` split does: float32 parameters
+with a bfloat16 input run the layer in bfloat16 (BatchNorm's arithmetic in
+float32, its output rounded to the input's dtype).
+
+Flax names hold dots ('Repeat.block35_1'), which torch forbids in module
+names, so each child is registered under an attribute name and keeps its
+flax name beside it; `from_flax_variables` loads a flax tree and
+`to_flax_variables` writes the current weights as one. Activations are
+NCHW inside; the public forward takes NHWC images.
 """
 
 from __future__ import annotations
@@ -40,7 +52,9 @@ default_config = {
     'output': {'size': 512},
 }
 
+WEIGHT_DECAY = 0.0005  # L2(5e-4) on every conv and dense kernel
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.99
 
 
 def check_input_config(cfg=None):
@@ -98,10 +112,36 @@ class _Flax(nn.Module):
                 stats[name] = s
         return params, stats
 
+    def dump_flax(self):
+        """The current weights as flax (params, batch_stats) trees."""
+        params, stats = {}, {}
+        for name, module in self.named_flax_children():
+            p, s = module.dump_flax()
+            params[name] = p
+            if s:
+                stats[name] = s
+        return params, stats
+
+    def to_flax_variables(self):
+        """The current weights as a flax ``{'params', 'batch_stats'}`` tree
+        of float32 numpy arrays, float64 for a float64 model (the reverse of
+        `from_flax_variables`)."""
+        params, stats = self.dump_flax()
+        return {'params': params, 'batch_stats': stats}
+
 
 def _copy(param, array):
+    wide = np.float64 if param.dtype == torch.float64 else np.float32
     with torch.no_grad():
-        param.copy_(torch.from_numpy(np.array(array, np.float32)))
+        param.copy_(torch.from_numpy(np.array(array, wide)))
+
+
+def _numpy(tensor):
+    """float64 tensors as float64 arrays, any other float as float32."""
+    tensor = tensor.detach()
+    if tensor.dtype != torch.float64:
+        tensor = tensor.float()
+    return tensor.cpu().numpy().copy()
 
 
 class Conv(nn.Module):
@@ -119,7 +159,9 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
+                        self.padding)
 
     def load_flax(self, params, stats=None):
         _copy(self.weight, np.transpose(params['kernel'], (3, 2, 0, 1)))
@@ -133,39 +175,75 @@ class Conv(nn.Module):
             params['bias'] = np.zeros((cout,), np.float32)
         return params, {}
 
+    def dump_flax(self):
+        params = {'kernel': _numpy(self.weight.permute(2, 3, 1, 0))}
+        if self.bias is not None:
+            params['bias'] = _numpy(self.bias)
+        return params, {}
+
 
 class Dense(nn.Module):
-    """Bias-free dense layer holding a flax [in, out] kernel as [out, in]."""
+    """Dense layer holding a flax [in, out] kernel as [out, in]; bias-free
+    unless ``bias=True``."""
 
-    def __init__(self, cin, cout):
+    def __init__(self, cin, cout, bias=False):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x):
-        return F.linear(x, self.weight)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
     def load_flax(self, params, stats=None):
         _copy(self.weight, np.transpose(params['kernel']))
+        if self.bias is not None:
+            _copy(self.bias, params['bias'])
 
     def flax_variables(self, rng):
         cout, cin = self.weight.shape
-        return {'kernel': _glorot_uniform(rng, (cin, cout))}, {}
+        params = {'kernel': _glorot_uniform(rng, (cin, cout))}
+        if self.bias is not None:
+            params['bias'] = np.zeros((cout,), np.float32)
+        return params, {}
+
+    def dump_flax(self):
+        params = {'kernel': _numpy(self.weight.T)}
+        if self.bias is not None:
+            params['bias'] = _numpy(self.bias)
+        return params, {}
 
 
 class BatchNorm(nn.Module):
-    """Center-only BatchNorm on running statistics over axis 1."""
+    """Center-only BatchNorm over axis 1: running statistics at inference,
+    the batch's in training (see the module docstring).
+
+    `update_running` false keeps the running statistics as they are in a
+    train-mode forward (a recomputing backward sets it, so that one step
+    moves them once)."""
 
     def __init__(self, features):
         super().__init__()
-        self.register_buffer('bias', torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer('mean', torch.zeros(features))
         self.register_buffer('var', torch.ones(features))
+        self.update_running = True
 
-    def forward(self, x):
+    def forward(self, x, train=False):
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        scale = torch.rsqrt(self.var + BN_EPS)
-        return ((x - self.mean.view(shape)) * scale.view(shape)
-                + self.bias.view(shape))
+        if train:
+            mean, var = batch_statistics(x)
+            if self.update_running:
+                with torch.no_grad():
+                    self.mean.copy_(BN_MOMENTUM * self.mean
+                                    + (1 - BN_MOMENTUM) * mean)
+                    self.var.copy_(BN_MOMENTUM * self.var
+                                   + (1 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.mean, self.var
+        scale = torch.rsqrt(var + BN_EPS)
+        y = (x - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
 
     def load_flax(self, params, stats):
         _copy(self.bias, params['bias'])
@@ -177,6 +255,23 @@ class BatchNorm(nn.Module):
         return ({'bias': np.zeros((n,), np.float32)},
                 {'mean': np.zeros((n,), np.float32),
                  'var': np.ones((n,), np.float32)})
+
+    def dump_flax(self):
+        return ({'bias': _numpy(self.bias)},
+                {'mean': _numpy(self.mean), 'var': _numpy(self.var)})
+
+
+def batch_statistics(x):
+    """Per-channel (mean, biased variance) of an NC... tensor over every
+    axis but 1, as flax's BatchNorm computes them: reductions in at least
+    float32 and var = max(0, E[x^2] - E[x]^2)."""
+    axes = [0] + list(range(2, x.ndim))
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = x.mean(dim=axes)
+    mean2 = x.square().mean(dim=axes)
+    var = torch.maximum(mean2 - mean.square(),
+                        torch.zeros((), dtype=mean.dtype, device=mean.device))
+    return mean, var
 
 
 class ConvBnRelu(_Flax):
@@ -190,8 +285,8 @@ class ConvBnRelu(_Flax):
         self.child('conv', Conv(cin, cout, kernel, stride, padding))
         self.child('bn', BatchNorm(cout))
 
-    def forward(self, x):
-        x = self.bn(self.conv(x))
+    def forward(self, x, train=False):
+        x = self.bn(self.conv(x), train)
         return F.relu(x) if self.relu else x
 
 
@@ -223,9 +318,10 @@ class Block35(_Residual):
         c('Branch_2.Conv2d_0b_3x3', ConvBnRelu(32, 32, (3, 3)), 'b2b')
         c('Branch_2.Conv2d_0c_3x3', ConvBnRelu(32, 32, (3, 3)), 'b2c')
 
-    def forward(self, x):
-        return self.residual(x, [self.b0(x), self.b1b(self.b1a(x)),
-                                 self.b2c(self.b2b(self.b2a(x)))])
+    def forward(self, x, train=False):
+        t = train
+        return self.residual(x, [self.b0(x, t), self.b1b(self.b1a(x, t), t),
+                                 self.b2c(self.b2b(self.b2a(x, t), t), t)])
 
 
 class Block17(_Residual):
@@ -239,8 +335,10 @@ class Block17(_Residual):
         c('Branch_1.Conv2d_0b_1x7', ConvBnRelu(128, 128, (1, 7)), 'b1b')
         c('Branch_1.Conv2d_0c_7x1', ConvBnRelu(128, 128, (7, 1)), 'b1c')
 
-    def forward(self, x):
-        return self.residual(x, [self.b0(x), self.b1c(self.b1b(self.b1a(x)))])
+    def forward(self, x, train=False):
+        t = train
+        return self.residual(x, [self.b0(x, t),
+                                 self.b1c(self.b1b(self.b1a(x, t), t), t)])
 
 
 class Block8(_Residual):
@@ -254,8 +352,10 @@ class Block8(_Residual):
         c('Branch_1.Conv2d_0b_1x3', ConvBnRelu(192, 192, (1, 3)), 'b1b')
         c('Branch_1.Conv2d_0c_3x1', ConvBnRelu(192, 192, (3, 1)), 'b1c')
 
-    def forward(self, x):
-        return self.residual(x, [self.b0(x), self.b1c(self.b1b(self.b1a(x)))])
+    def forward(self, x, train=False):
+        t = train
+        return self.residual(x, [self.b0(x, t),
+                                 self.b1c(self.b1b(self.b1a(x, t), t), t)])
 
 
 class ReductionA(_Flax):
@@ -273,8 +373,10 @@ class ReductionA(_Flax):
           ConvBnRelu(f1b, f1c, (3, 3), 2, 'VALID'), 'b1c')
         self.cout = f0 + f1c + cin
 
-    def forward(self, x):
-        return torch.cat([self.b0(x), self.b1c(self.b1b(self.b1a(x))),
+    def forward(self, x, train=False):
+        t = train
+        return torch.cat([self.b0(x, t),
+                          self.b1c(self.b1b(self.b1a(x, t), t), t),
                           F.max_pool2d(x, 3, 2)], dim=1)
 
 
@@ -297,20 +399,22 @@ class ReductionB(_Flax):
           ConvBnRelu(f2b, f2c, (3, 3), 2, 'VALID'), 'b2c')
         self.cout = f0b + f1b + f2c + cin
 
-    def forward(self, x):
-        return torch.cat([self.b0b(self.b0a(x)), self.b1b(self.b1a(x)),
-                          self.b2c(self.b2b(self.b2a(x))),
+    def forward(self, x, train=False):
+        t = train
+        return torch.cat([self.b0b(self.b0a(x, t), t),
+                          self.b1b(self.b1a(x, t), t),
+                          self.b2c(self.b2b(self.b2a(x, t), t), t),
                           F.max_pool2d(x, 3, 2)], dim=1)
 
 
 class InceptionResnetV1(_Flax):
-    """The full embedding network, eval mode: uint8 NHWC images in,
-    [B, output.size] float32 embeddings out (L2-normalized unless
-    ``normalize=False``)."""
+    """The full embedding network: uint8 NHWC images in, [B, output.size]
+    float32 embeddings out, L2-normalized at inference."""
 
     def __init__(self, config=None, image_size=160, normalization=0):
         super().__init__()
         cfg = check_input_config(config)
+        self.config = config            # as given; a bundle records it
         self.cfg = cfg
         self.image_size = int(image_size)
         self.normalization = int(normalization)
@@ -353,29 +457,39 @@ class InceptionResnetV1(_Flax):
         c('Bottleneck', Dense(ch * side * side, size), 'bottleneck')
         c('Bottleneck.bn', BatchNorm(size), 'bottleneck_bn')
 
-    def forward(self, images, normalize=True):
-        """[B,H,W,3] uint8 (or float) -> [B, output.size] float32."""
-        dtype = self.bottleneck.weight.dtype
+    def forward(self, images, train=False, normalize=None, dtype=None):
+        """[B,H,W,3] uint8 (or float) -> [B, output.size] float32.
+
+        :param train: BatchNorm on the batch's statistics, moving the
+            running ones (see the module docstring)
+        :param normalize: L2-normalize the output; defaults to ``not
+            train`` (False reads the raw bottleneck)
+        :param dtype: the compute dtype; defaults to the weights' dtype
+        """
+        dtype = dtype or self.bottleneck.weight.dtype
+        t = train
         x = image_processing(images, self.image_size, self.normalization,
                              dtype=dtype).permute(0, 3, 1, 2)
         for layer in self.stem1:
-            x = layer(x)
+            x = layer(x, t)
         x = F.max_pool2d(x, 3, 2)
         for layer in self.stem2:
-            x = layer(x)
+            x = layer(x, t)
         for block in self.blocks35:
-            x = block(x)
-        x = self.reduction_a(x)
+            x = block(x, t)
+        x = self.reduction_a(x, t)
         for block in self.blocks17:
-            x = block(x)
-        x = self.reduction_b(x)
+            x = block(x, t)
+        x = self.reduction_b(x, t)
         for block in self.blocks8:
-            x = block(x)
-        x = self.block8_final(x)
+            x = block(x, t)
+        x = self.block8_final(x, t)
 
         x = F.avg_pool2d(x, 3, 3)
         x = x.permute(0, 2, 3, 1).flatten(1)        # NHWC flatten order
-        x = self.bottleneck_bn(self.bottleneck(x)).float()
+        x = self.bottleneck_bn(self.bottleneck(x), t).float()
+        if normalize is None:
+            normalize = not train
         if normalize:
             norm = torch.sqrt(torch.clamp(
                 x.square().sum(dim=1, keepdim=True), min=1e-10))
@@ -386,6 +500,15 @@ class InceptionResnetV1(_Flax):
         """Load a flax ``{'params', 'batch_stats'}`` tree of numpy arrays."""
         self.load_flax(variables['params'], variables['batch_stats'])
         return self
+
+
+def l2_regularization(module, weight_decay=WEIGHT_DECAY):
+    """weight_decay * sum(w ** 2) over every conv and dense kernel under
+    `module` (the leaves a flax tree names 'kernel'; biases and BatchNorm
+    excluded), in float32."""
+    return weight_decay * torch.stack(
+        [m.weight.float().square().sum() for m in module.modules()
+         if isinstance(m, (Conv, Dense))]).sum()
 
 
 def init_variables(config=None, seed=0, image_size=160):

@@ -111,6 +111,7 @@ class InceptionResnetV2(_Flax):
     def __init__(self, config=None, image_size=160, normalization=0):
         super().__init__()
         cfg = check_input_config(config)
+        self.config = config            # as given; a bundle records it
         self.cfg = cfg
         self.image_size = int(image_size)
         self.normalization = int(normalization)

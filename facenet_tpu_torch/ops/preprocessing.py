@@ -58,3 +58,62 @@ def image_processing(image_batch, size, normalization=0, dtype=torch.float32):
         raise ValueError('Invalid image normalization algorithm')
 
     return x.to(dtype)
+
+
+def augment_draws(generator, batch, height, width, random_crop=False,
+                  random_flip=False, crop_size=None):
+    """The random part of `random_augment`: per-image crop offsets and
+    flips drawn from `generator` (a CPU torch.Generator). Returns
+    (off_y, off_x, flip) int64/int64/bool CPU tensors, each None when that
+    augmentation is off."""
+    off_y = off_x = flip = None
+    if random_crop and crop_size is not None and (
+            height > crop_size or width > crop_size):
+        off_y = torch.randint(0, height - crop_size + 1, (batch,),
+                              generator=generator)
+        off_x = torch.randint(0, width - crop_size + 1, (batch,),
+                              generator=generator)
+    if random_flip:
+        flip = torch.rand((batch,), generator=generator) < 0.5
+    return off_y, off_x, flip
+
+
+def augment_with(image_batch, off_y=None, off_x=None, flip=None,
+                 crop_size=None):
+    """The deterministic part of `random_augment`: crop each NHWC image at
+    its (off_y, off_x) to crop_size x crop_size, then mirror the images
+    whose `flip` is set left to right. Pixels are copied, never
+    resampled."""
+    x = image_batch
+    if off_y is not None:
+        device = x.device
+        rows = off_y.to(device)[:, None] + torch.arange(crop_size,
+                                                        device=device)
+        cols = off_x.to(device)[:, None] + torch.arange(crop_size,
+                                                        device=device)
+        batch = torch.arange(x.shape[0], device=device)[:, None, None]
+        x = x[batch, rows[:, :, None], cols[:, None, :]]
+    if flip is not None:
+        x = torch.where(flip.to(x.device)[:, None, None, None],
+                        x.flip(2), x)
+    return x
+
+
+def random_augment(generator, image_batch, random_crop=False,
+                   random_flip=False, crop_size=None):
+    """Training-time augmentation of a uint8 NHWC batch before
+    `image_processing`: a random crop to crop_size (when the images are
+    larger) and a random left-right flip, each image on its own draw."""
+    b, h, w = image_batch.shape[:3]
+    draws = augment_draws(generator, b, h, w, random_crop=random_crop,
+                          random_flip=random_flip, crop_size=crop_size)
+    return augment_with(image_batch, *draws, crop_size=crop_size)
+
+
+def center_crop(image_batch, crop_size):
+    """Center-crop an NHWC batch to crop_size (the evaluation counterpart
+    of the random crop)."""
+    h, w = image_batch.shape[1], image_batch.shape[2]
+    oy = (h - crop_size) // 2
+    ox = (w - crop_size) // 2
+    return image_batch[:, oy:oy + crop_size, ox:ox + crop_size, :]

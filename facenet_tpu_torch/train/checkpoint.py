@@ -1,0 +1,93 @@
+"""Checkpoints of the train state, written with torch.save.
+
+A checkpoint holds all of a `TrainState`: the model's parameters and
+BatchNorm statistics, Adam's moments and counts, the centers table, the
+step, the augmentation generator's state, and optionally the input
+pipeline's cursor, so that a resumed run continues on the exact next
+batch. Each lives in ``<directory>/<step>/state.pt``, written to a
+temporary name and renamed, and at most ``max_to_keep`` stay.
+
+The format is the port's own: the JAX package's Orbax checkpoint
+directories are not read here, nor these by it (a model bundle,
+`export.save_model`, is what the two packages share).
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+from pathlib import Path
+
+import torch
+
+STATE_FILE = 'state.pt'
+
+
+def _to_savable(state):
+    return {
+        'step': int(state.step),
+        'model': state.model.state_dict(),
+        'optimizer': state.optimizer.state_dict(),
+        'centers': state.centers,
+        'generator': state.generator.get_state(),
+    }
+
+
+class CheckpointManager:
+    """Numbered checkpoints in a directory, newest kept."""
+
+    def __init__(self, directory, max_to_keep=3):
+        self.directory = Path(str(directory)).expanduser().resolve()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.max_to_keep = int(max_to_keep or 3)
+
+    def steps(self):
+        """The saved steps, oldest first."""
+        return sorted(int(p.name) for p in self.directory.iterdir()
+                      if p.name.isdigit() and (p / STATE_FILE).is_file())
+
+    def save(self, step, state, data_state=None):
+        """Save `state` as step `step`, with the pipeline cursor
+        `data_state` (a dict of ints: ``BatchLoader`` / ``PKPipeline``
+        ``.state()``) beside it; drop the oldest past `max_to_keep`."""
+        savable = _to_savable(state)
+        if data_state is not None:
+            savable['data_state'] = {k: int(v) for k, v in data_state.items()}
+        target = self.directory / str(int(step))
+        target.mkdir(exist_ok=True)
+        tmp = target / (STATE_FILE + '.tmp')
+        torch.save(savable, tmp)
+        os.replace(tmp, target / STATE_FILE)
+        for old in self.steps()[:-self.max_to_keep]:
+            shutil.rmtree(self.directory / str(old))
+
+    def latest_step(self):
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def restore(self, state, step=None, with_data_state=False):
+        """Load a checkpoint (the latest by default) into `state`, a
+        `TrainState` of the same model and optimizer layout, in place.
+
+        :return: the state, or None without a checkpoint; with
+            `with_data_state`, (state, cursor dict or None)
+        """
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            return (None, None) if with_data_state else None
+        device = next(state.model.parameters()).device
+        saved = torch.load(self.directory / str(int(step)) / STATE_FILE,
+                           map_location=device, weights_only=True)
+        state.model.load_state_dict(saved['model'])
+        state.optimizer.load_state_dict(saved['optimizer'])
+        centers = saved['centers']
+        state.centers = None if centers is None else centers.to(device)
+        state.generator.set_state(saved['generator'].cpu())
+        state.step = int(saved['step'])
+        data_state = saved.get('data_state')
+        return (state, data_state) if with_data_state else state
+
+    def close(self):
+        """Nothing is written in the background; kept for the JAX
+        package's interface."""

@@ -8,7 +8,8 @@ scenes the detector quality gate and the on-card smoke run use.
 `alignment_inputs` makes the landmark alignment's warp inputs (crops and
 matrices) for faces at chosen rotations, in torch. `lfw_shape_counts` gives
 per-identity image counts with LFW's shape (5,749 identities, 13,233
-images, a long tail).
+images, a long tail). `write_identity_dataset` writes directory-per-class
+face crops as PNG files (PIL, imported there) for the training tests.
 
 Landmark convention matches MTCNN (Zhang et al. 2016): left eye, right
 eye, nose tip, left mouth corner, right mouth corner, as (x, y) pixels.
@@ -18,11 +19,12 @@ The same seed gives the same scene as ``facenet_tpu.utils.synthetic``.
 from __future__ import annotations
 
 import math
+from pathlib import Path
 
 import numpy as np
 
 __all__ = ['identity_params', 'render_face_patch', 'render_scene',
-           'lfw_shape_counts']
+           'lfw_shape_counts', 'write_identity_dataset']
 
 SCENE_FAMILIES = ('base', 'shifted', 'stress')
 
@@ -645,3 +647,30 @@ def lfw_shape_counts(n_identities=5749, n_images=13233, n_multi=1680,
     rng.shuffle(counts)
     assert counts.sum() == n_images, counts.sum()
     return counts
+
+
+def write_identity_dataset(directory, n_classes, images_per_class, size=160,
+                           seed=0):
+    """Directory-per-class aligned crops, readable by `dataset.Database`;
+    the same seed writes the same files as the JAX package's function with
+    its default prefix and identities.
+
+    :param n_classes: class count (ids 0..n-1) or an iterable of explicit
+        identity ids (e.g. an offset range for held-out identities)
+    """
+    from PIL import Image
+
+    directory = Path(str(directory)).expanduser()
+    directory.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+
+    class_ids = (range(int(n_classes)) if np.isscalar(n_classes)
+                 else list(n_classes))
+    for label, c in enumerate(class_ids):
+        cls_dir = directory / f'person_{label:04d}'
+        cls_dir.mkdir(exist_ok=True)
+        ident = identity_params(c)
+        for i in range(int(images_per_class)):
+            img = render_face_patch(size, ident, rng)
+            Image.fromarray(img).save(cls_dir / f'person_{label:04d}_{i:04d}.png')
+    return directory

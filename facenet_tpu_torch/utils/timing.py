@@ -74,7 +74,8 @@ def device_ms(fn, reps, warmup=2, windows=3):
 def device_busy(fn, calls=1):
     """torch.profiler over `calls` calls of fn(): (device busy ms per call,
     wall ms per call, kernel rows). The busy time is the sum of the kernels'
-    own durations, so it does not depend on how fast the host issues them."""
+    own durations, so it does not depend on how fast the host issues them;
+    device spans of annotated ranges are not kernels and are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -86,7 +87,10 @@ def device_busy(fn, calls=1):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # a record_function range (optimizer.step has one) is also recorded on
+    # the device, as a user annotation spanning kernels counted already
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / calls
     return busy_ms, wall_ms, rows
 

@@ -566,3 +566,56 @@ def test_int8_conv_takes_the_plain_sums_on_cpu(monkeypatch):
     assert y.is_contiguous(memory_format=torch.channels_last)
     with pytest.raises(ValueError, match='stride 1'):
         int8_conv.int8_conv(x, entry, 2, 'SAME')
+
+
+TRAIN_LOSSES = {
+    'softmax + center': {'center_factor': 0.5, 'center_alfa': 0.9},
+    'triplet': {'softmax_factor': 0.0, 'triplet_factor': 1.0},
+}
+
+
+def _train_batch(batch, classes, seed=0):
+    """uint8 images of `batch // 2` identities (a base image each plus
+    noise), two of each, and their labels."""
+    rng = np.random.RandomState(seed)
+    labels = np.repeat(np.arange(batch // 2), 2).astype(np.int32)
+    base = rng.randint(0, 256, (classes, 160, 160, 3)).astype(np.float32)
+    images = np.clip(base[labels % classes]
+                     + 20 * rng.randn(batch, 160, 160, 3), 0,
+                     255).astype(np.uint8)
+    return images, labels
+
+
+# (metric rtol, leaf atol, leaf bound as a fraction of its largest update)
+TRAIN_BOUNDS = {'float32': (1e-4, 1e-6, 0.5), 'float64': (1e-5, 1e-12, 1e-5)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', sorted(TRAIN_BOUNDS))
+@pytest.mark.parametrize('loss', sorted(TRAIN_LOSSES))
+def test_train_step_on_the_card_matches_the_cpu(loss, dtype):
+    """A TINY train step with TF32 off: the losses (the forward before the
+    update) and every parameter, BN statistic and center against the
+    CPU's. float32 holds each leaf within half its largest update + 1e-6
+    (the float32 backward through train-mode BatchNorm at batch 8 is
+    ill-conditioned; see tests/test_torch_train.py); float64 within 1e-5
+    of it + 1e-12, the metrics at rtol 1e-5 (the losses keep their float32
+    casts: the triplet loss, a mean of hinge terms, is float32 to ~1e-6
+    of itself)."""
+    from facenet_tpu_torch.config import Config
+    from facenet_tpu_torch.train.softmax import step_on_devices
+
+    _gpu()
+    rtol, atol, bound = TRAIN_BOUNDS[dtype]
+    cfg = Config({'image': {'size': 160},
+                  'train': {'epoch': {'size': 1},
+                            'learning_rate': {'value': 1e-3}},
+                  'loss': TRAIN_LOSSES[loss]})
+    (card, cpu), worst, _ = step_on_devices(
+        cfg, 4, *_train_batch(8, 4), model_cfg=TINY,
+        dtype=getattr(torch, dtype), atol=atol)
+    assert sorted(card) == sorted(cpu)
+    for key in cpu:
+        np.testing.assert_allclose(card[key], cpu[key], rtol=rtol,
+                                   atol=atol, err_msg=key)
+    assert worst <= bound, worst

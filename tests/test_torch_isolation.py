@@ -59,7 +59,9 @@ def test_port_imports_no_jax_and_no_facenet_tpu():
                  'utils.tfrecord', 'apps.embeddings', 'apps.validate_on_lfw',
                  'bench', 'models.quantize', 'ops.int8_conv',
                  'models.inception_resnet_v2', 'models.irv2_fast',
-                 'tools.validate_int8'):
+                 'tools.validate_int8', 'ops.losses', 'ops.lr_schedules',
+                 'train.softmax', 'train.checkpoint', 'callbacks',
+                 'apps.train_softmax'):
         assert f'facenet_tpu_torch.{name}' in result['names'], name
 
 
