@@ -201,7 +201,30 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      30 B1 launches; finite report;
  30. save_model of the trained backbone, load_model, FaceNet on the card:
      min cosine >= 0.995 against the trainer's embedding_forward, no
-     kernel launch.
+     kernel launch;
+ 31. the process grid at world size 1 under NCCL (parallel.launch.spawn):
+     SoftmaxTrainer(mesh=create_mesh(1, 1)) takes 5 bf16 steps at batch
+     100 with the 8,631-way head under cudnn.deterministic; every leaf
+     within 1e-6 of the trainer's without a process group; ms a step (as
+     issued) beside phase 25's; no collective made (so no NCCL share of the
+     busy time); its ValidateCallback launches B1 exactly 30 times;
+ 32. two ranks sharing the card under gloo with CUDA tensors (NCCL refuses
+     two ranks on one device): one float64 step (TF32 off) at global batch
+     8 on (data=2, model=1) with the 8,631-way head, softmax + center and
+     triplet, and on (data=1, model=2) with the 85,742-way head of MS1MV2,
+     each against the same step on one rank (train.softmax.
+     grid_step_check): metrics at rtol 1e-5, every leaf within 1e-5 of its
+     update (+1e-12); then 3 bf16 steps on (2, 1) at global batch 100 and
+     their ms (gloo stages every collective through the host: no
+     multi-GPU rate);
+ 33. pair statistics on the two ranks at phase 6's shape (23,840 x 512,
+     T=100): each rank passing its own half of the rows (the sharded
+     path), the cumulative counts equal B1's under phase 3's rule; each
+     passing the full set (the validate path), one B1 launch on each rank
+     and the counts of B1 on one rank; the ms of both paths beside B1's;
+ 34. evaluate_embeddings(mesh=) on the two ranks: 1,000 images in batches
+     of 111 through the full-width IRv1 in float32 (no TF32): the rows
+     in order, at cosine >= 0.99999 to one rank's.
 
 The GPU machine may lack PIL, yaml, h5py, sklearn and click, so nothing
 here imports them: the model bundle is built in memory, images and scenes
@@ -215,6 +238,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import itertools
 import json
 import re
@@ -264,19 +288,40 @@ def compare_kernel_plain(pair_counts, inputs, label):
     plain = pair_counts.pair_histogram_plain(inputs)
     torch.cuda.synchronize()
     kern_cum, plain_cum = kern.cumsum(1), plain.cumsum(1)
+    allowed = near_cutoff_weight(inputs)
+    diff = (kern_cum - plain_cum).abs()
+    limit = allowed + 1e-6 * plain_cum.abs() + 1e-12
+    require(not bool((diff > limit).any()),
+            f'kernel != plain ({label}): max excess '
+            f'{float((diff - limit).max()):.3e}')
+    t = inputs.cutoffs.numel()
+    ambiguous = int((allowed[:, :t] > 0).sum())
+    err = float(diff.max())
+    print(f'  N={inputs.embeddings.shape[0]} D={inputs.embeddings.shape[1]} '
+          f'{label}: max |kernel-plain| {err:.3e}, total pos '
+          f'{float(plain_cum[0, -1]):.6f} neg {float(plain_cum[1, -1]):.6f}, '
+          f'{ambiguous} (side, cutoff) cells with pairs within 1e-6')
+    return err
 
-    # weight of the pairs a float32 rounding may put on either side of c_k
+
+def near_cutoff_weight(inputs):
+    """[2, T + 1] weight of the positive and negative pairs whose float64
+    similarity lies within 1e-6 of each cutoff: pairs a float32 rounding
+    may put on either side of it. Rows of the float64 product go in
+    chunks, so it runs at the full validation size too."""
+    import torch
     e64 = inputs.embeddings.double()
     lab = inputs.labels
     cut64 = inputs.cutoffs.double()
     t = cut64.numel()
     n = e64.shape[0]
-    allowed = torch.zeros(2, t + 1, dtype=torch.float64, device='cuda')
+    device = e64.device
+    allowed = torch.zeros(2, t + 1, dtype=torch.float64, device=device)
     for start in range(0, n, 2048):
         stop = min(start + 2048, n)
         sims = torch.clamp(e64[start:stop] @ e64.T, -1.0, 1.0)
-        rows = torch.arange(start, stop, device='cuda')[:, None]
-        upper = rows < torch.arange(n, device='cuda')[None, :]
+        rows = torch.arange(start, stop, device=device)[:, None]
+        upper = rows < torch.arange(n, device=device)[None, :]
         pos = lab[start:stop, None] == lab[None, :]
         w_pos = torch.where(pos & upper, inputs.w_pos[start:stop, None], 0.0)
         w_neg = torch.where(~pos & upper, inputs.inv_n[start:stop, None]
@@ -285,17 +330,7 @@ def compare_kernel_plain(pair_counts, inputs, label):
             near = (sims - cut64[k]).abs() <= 1e-6
             allowed[0, k] += (w_pos * near).sum()
             allowed[1, k] += (w_neg * near).sum()
-    diff = (kern_cum - plain_cum).abs()
-    limit = allowed + 1e-6 * plain_cum.abs() + 1e-12
-    require(not bool((diff > limit).any()),
-            f'kernel != plain ({label}): max excess '
-            f'{float((diff - limit).max()):.3e}')
-    ambiguous = int((allowed[:, :t] > 0).sum())
-    err = float(diff.max())
-    print(f'  N={n} D={e64.shape[1]} {label}: max |kernel-plain| {err:.3e}, total pos '
-          f'{float(plain_cum[0, -1]):.6f} neg {float(plain_cum[1, -1]):.6f}, '
-          f'{ambiguous} (side, cutoff) cells with pairs within 1e-6')
-    return err
+    return allowed
 
 
 def prepared(pair_counts, emb, labels, metric, t=100):
@@ -2026,6 +2061,404 @@ def slice9_phases(rng, context):
             and cos.min() >= 0.995, f'exported model serves off: {cos.min()}')
     require(counts == only(), f'serving launched kernels: {counts}')
     print(f'  phases 25-30 in {time.monotonic() - started:.1f} s on {smi}')
+    context.update(train_images=images_np, train_labels=labels_np,
+                   held_out=held_out, train_ms=ms, train_busy=busy)
+
+
+MS1MV2_CLASSES = 85742      # identities of InsightFace's MS1MV2 (emore)
+
+
+COLLECTIVES = ('all_reduce', 'all_gather', 'all_gather_into_tensor',
+               'reduce_scatter_tensor', 'broadcast', 'barrier')
+
+
+def counting_collectives():
+    """Count every torch.distributed collective this process makes from
+    now on: {name: calls}, filled in as they are made."""
+    import torch.distributed as dist
+
+    counts = dict.fromkeys(COLLECTIVES, 0)
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name in COLLECTIVES:
+        setattr(dist, name, counted(name, getattr(dist, name)))
+    return counts
+
+
+def grid_path_rank(device, images, labels, held_out, steps):
+    """Phase 31 in its rank (a world of one under NCCL): the trainer on a
+    1 x 1 grid, `steps` bf16 steps under cudnn.deterministic, the leaves;
+    the step's time; the collectives the steps and the validation made;
+    the validation callback's B1 launches."""
+    import torch
+
+    from facenet_tpu_torch import callbacks
+    from facenet_tpu_torch.config import Config
+    from facenet_tpu_torch.ops import pair_counts
+    from facenet_tpu_torch.parallel.mesh import create_mesh
+    from facenet_tpu_torch.train.softmax import SoftmaxTrainer, flat_leaves
+    from facenet_tpu_torch.utils.timing import cuda_ms
+
+    seconds = {}
+    collectives = counting_collectives()
+    t0 = time.monotonic()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mesh = create_mesh(1, 1, device=device)
+    trainer = SoftmaxTrainer(train_config(), VGGFACE2_CLASSES, mesh=mesh)
+    state = trainer.init_state(seed=0)
+    cards = [trainer.placed_rows(*batch)
+             for batch in hundreds(images, labels)]
+    seconds['state'] = time.monotonic() - t0
+    t0 = time.monotonic()
+    for i in range(steps):
+        state, metrics = trainer.step_fn(state, *cards[i % len(cards)])
+    leaves = [a.astype(np.float32) for a in
+              flat_leaves(state.model.to_flax_variables())]
+    loss = float(metrics['loss'])
+    seconds['steps'] = time.monotonic() - t0
+
+    def step():
+        trainer.step_fn(state, *cards[0])
+
+    t0 = time.monotonic()
+    ms, _ = cuda_ms(step, reps=5, warmup=1)
+    seconds['times'] = time.monotonic() - t0
+    t0 = time.monotonic()
+    callback = callbacks.ValidateCallback(
+        forward_factory=trainer.embedding_forward,
+        batches_factory=lambda: iter(held_out), every_n_epochs=1,
+        max_nrof_epochs=1,
+        config=Config({'validate': {'metric': 0, 'nrof_folds': 10,
+                                    'far_target': 1e-3}}),
+        device=device, mesh=mesh)
+    pair_counts.pair_histogram.launches = 0
+    validation = callback.on_epoch_end(0, state)
+    launches = pair_counts.pair_histogram.launches
+    finite = all(np.isfinite(v) for values in validation.dict.values()
+                 for v in values.values())
+    seconds['validation'] = time.monotonic() - t0
+    return {'leaves': leaves, 'loss': loss, 'ms': ms,
+            'collectives': sum(collectives.values()), 'launches': launches,
+            'finite': finite, 'world': mesh.world_size,
+            'seconds': seconds}
+
+
+def shared_card_rank(device, gate, grid_images, grid_labels, pk_images,
+                     pk_labels, train_images, train_labels, pair_emb,
+                     pair_labels):
+    """Phases 32-34 in each of two ranks sharing the card under gloo, once
+    `gate` opens (1; -1 returns at once)."""
+    import torch
+    import torch.distributed as dist
+
+    from facenet_tpu_torch.facenet import evaluate_embeddings
+    from facenet_tpu_torch.models.inception_resnet_v1 import (
+        InceptionResnetV1, init_variables)
+    from facenet_tpu_torch.ops import pair_counts
+    from facenet_tpu_torch.parallel.mesh import create_mesh
+    from facenet_tpu_torch.parallel.sharded_eval import \
+        sharded_pair_histograms
+    from facenet_tpu_torch.statistics import confusion_counts
+    from facenet_tpu_torch.train.softmax import (SoftmaxTrainer,
+                                                 grid_step_check)
+
+    while gate.value == 0:
+        time.sleep(0.05)
+    if gate.value < 0:
+        return None
+    out = {}
+    # 32. float64 steps on (2, 1) and (1, 2), then bf16 steps on (2, 1)
+    checks = [((2, 1), VGGFACE2_CLASSES, 'softmax + center',
+               train_config(1, center_factor=0.01), grid_images,
+               grid_labels),
+              ((2, 1), VGGFACE2_CLASSES, 'triplet',
+               train_config(1, softmax_factor=0.0, triplet_factor=1.0),
+               pk_images, pk_labels),
+              ((1, 2), MS1MV2_CLASSES, 'softmax + center',
+               train_config(1, center_factor=0.01), grid_images,
+               grid_labels)]
+    out['checks'] = []
+    for grid, classes, loss, cfg, images, labels in checks:
+        t0 = time.monotonic()
+        result = grid_step_check(device, cfg, classes, images, labels, grid,
+                                 dtype='float64', atol=1e-12)
+        out['checks'].append((grid, classes, loss, result,
+                              time.monotonic() - t0))
+    t0 = time.monotonic()
+    mesh = create_mesh(2, 1, device=device)
+    trainer = SoftmaxTrainer(train_config(), VGGFACE2_CLASSES, mesh=mesh)
+    state = trainer.init_state(seed=0)
+    batch = trainer.placed_rows(train_images[:100], train_labels[:100])
+    state, _ = trainer.step_fn(state, *batch)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    for _ in range(3):
+        state, metrics = trainer.step_fn(state, *batch)
+    float(metrics['loss'])
+    torch.cuda.synchronize()
+    out['bf16_ms'] = (time.monotonic() - t1) / 3 * 1e3
+    out['bf16_loss'] = float(metrics['loss'])
+    out['bf16_s'] = time.monotonic() - t0
+    del trainer, state, batch
+
+    # 33. the pair statistics, each rank with its own half of the rows
+    # (the sharded path), then each with the full set (the validate path)
+    thresholds = np.linspace(0, 4.0, 100).astype(np.float32)
+    dense = np.unique(pair_labels, return_inverse=True)[1]
+    classes = int(dense.max()) + 1
+    local = create_mesh(2, 1, device=device, local_rows=True)
+    half = len(dense) // 2
+    rows = slice(0, half) if local.rank == 0 else slice(half, None)
+    stripe, stripe_labels = pair_emb[rows], dense[rows]
+    sharded_pair_histograms(stripe[:256], stripe_labels[:256], thresholds,
+                            classes, 0, local)         # warm-up
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    hist = sharded_pair_histograms(stripe, stripe_labels, thresholds,
+                                   classes, 0, local)
+    torch.cuda.synchronize()
+    out['pairs_ms'] = (time.monotonic() - t0) * 1e3
+    out['hist'] = np.stack(hist)
+    confusion_counts(pair_emb[:256], pair_labels[:256], thresholds,
+                     mesh=mesh)                        # warm-up
+    dist.barrier()
+    torch.cuda.synchronize()
+    pair_counts.pair_histogram.launches = 0
+    t0 = time.monotonic()
+    out['full_counts'] = confusion_counts(pair_emb, pair_labels, thresholds,
+                                          mesh=mesh)
+    torch.cuda.synchronize()
+    out['full_ms'] = (time.monotonic() - t0) * 1e3
+    out['full_launches'] = pair_counts.pair_histogram.launches
+
+    # 34. sharded extraction, float32 without TF32
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        net = InceptionResnetV1().from_flax_variables(init_variables(seed=0))
+        net = net.to(device).eval()
+
+        def forward(images):
+            with torch.inference_mode():
+                return net(torch.as_tensor(images).to(device))
+
+        rng = np.random.default_rng(34)
+        images = rng.integers(0, 256, (1000, 160, 160, 3), dtype=np.uint8)
+        batches = [(images[i:i + 111], np.arange(i, min(i + 111, 1000)))
+                   for i in range(0, 1000, 111)]
+        t0 = time.monotonic()
+        rows, order = evaluate_embeddings(forward, batches,
+                                          renormalize=False, mesh=mesh)
+        out['extract_s'] = time.monotonic() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    out['rows'], out['order'] = rows, order
+    return out if mesh.rank == 0 else None
+
+
+def grid_path(context, pool):
+    """Phase 31: the 1 x 1 grid in a world of one under NCCL, its rank
+    started on `pool` while the trainer alone takes the same steps here."""
+    import torch
+
+    from facenet_tpu_torch.parallel import launch
+    from facenet_tpu_torch.train.softmax import SoftmaxTrainer, flat_leaves
+
+    smi = context['smi']
+    images_np, labels_np = context['train_images'], context['train_labels']
+    print('[31] SoftmaxTrainer(mesh=create_mesh(1, 1)) in a world of one '
+          'under NCCL (parallel.launch.spawn), 5 bf16 steps at batch 100 '
+          f'with the {VGGFACE2_CLASSES}-way head, cudnn.deterministic, '
+          'against the trainer without a process group (cuda)')
+    t0 = time.monotonic()
+    rank = pool.submit(launch.spawn, grid_path_rank, 1, backend='nccl',
+                       device='cuda', timeout=300,
+                       args=(images_np, labels_np, context['held_out'], 5))
+    deterministic = (torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        alone = SoftmaxTrainer(train_config(), VGGFACE2_CLASSES,
+                               device='cuda')
+        state = alone.init_state(seed=0)
+        batches = hundreds(images_np, labels_np)
+        for i in range(5):
+            state, _ = alone.step_fn(
+                state, *alone.placed(*batches[i % len(batches)]))
+        want = list(flat_leaves(state.model.to_flax_variables()))
+        del alone, state
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = deterministic
+    torch.cuda.empty_cache()
+    got = rank.result()[0]
+    spawn_s = time.monotonic() - t0
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(got['leaves'],
+                                                          want))
+    print(f'  world {got["world"]} (nccl): max |grid - alone| over '
+          f'{len(want)} leaves after 5 steps {diff:.3e} (bound 1e-6); '
+          f'loss {got["loss"]:.6f}; {spawn_s:.1f} s for the rank on {smi}, '
+          'start-up included: ' + ', '.join(f'{k} {v:.1f} s'
+                                   for k, v in got['seconds'].items()))
+    print(f'  on {smi}: {got["ms"]:.3f} ms a step as the host issues it; '
+          f'phase 25\'s trainer {context["train_ms"]:.3f} ms issued, '
+          f'{context["train_busy"]:.3f} ms device busy; the grid\'s '
+          f'5 steps, timing and validation made '
+          f'{got["collectives"]} collectives, so NCCL holds no share of '
+          'its busy time (the steps launch the kernels of phase 25\'s, '
+          'whose busy time stands for theirs)')
+    print(f'  ValidateCallback in the rank: {got["launches"]} '
+          'pair_below_counts launches')
+    require(diff <= 1e-6, f'1 x 1 grid != trainer alone ({diff})')
+    require(got['launches'] == 30 and got['finite'],
+            f'grid validation: {got["launches"]} B1 launches')
+    require(got['collectives'] == 0,
+            f'a 1 x 1 grid made {got["collectives"]} collectives')
+
+
+def slice10_phases(context):
+    """Phases 31-34 (see the module docstring): the process grid on the
+    card; returns nothing, fails the run when a check fails."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from facenet_tpu_torch import statistics
+    from facenet_tpu_torch.models.inception_resnet_v1 import (
+        InceptionResnetV1, init_variables)
+    from facenet_tpu_torch.ops import pair_counts
+    from facenet_tpu_torch.parallel import launch
+
+    smi = context['smi']
+    started = time.monotonic()
+    images_np, labels_np = context['train_images'], context['train_labels']
+
+    pk_labels = np.repeat(ids_for_pk(labels_np), 2)
+    pk_images = np.stack([images_np[np.flatnonzero(labels_np == c)[j]]
+                          for c in ids_for_pk(labels_np) for j in (0, 1)])
+    emb, pair_labels, inputs = context['pair_inputs']
+    # The ranks start up (processes, imports, process groups) while the
+    # trainer alone takes phase 31's steps here: the two-rank group of
+    # phases 32-34 then waits at `gate` until phase 31 is done (1), or
+    # returns at once if it failed (-1).
+    gate = mp.get_context('spawn').Value('i', 0)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        group = pool.submit(
+            launch.spawn, shared_card_rank, 2, backend='gloo',
+            device='cuda', timeout=600,
+            args=(gate, images_np[:8], labels_np[:8], pk_images, pk_labels,
+                  images_np[:100], labels_np[:100], emb, pair_labels))
+        try:
+            grid_path(context, pool)
+        except BaseException:
+            gate.value = -1
+            raise
+        t0 = time.monotonic()
+        gate.value = 1
+
+        # 32-34. two ranks share the card under gloo
+        print('[32] two ranks sharing the card under gloo (CUDA tensors): '
+              'one float64 step (TF32 off) at global batch 8 on (data=2, '
+              f'model=1) with the {VGGFACE2_CLASSES}-way head, softmax + '
+              'center and triplet (a 4 x 2 P x K batch), and on (data=1, '
+              f'model=2) with the {MS1MV2_CLASSES}-way head of MS1MV2 '
+              '(8,631 does not split in two), each against the same step '
+              'on one rank; then 3 bf16 steps at global batch 100 on '
+              '(2, 1)')
+        out = group.result()[0]
+    group_s = time.monotonic() - t0
+    for grid, classes, loss, result, seconds in out['checks']:
+        (on_grid, one), worst, largest = result
+        print(f'  {grid} {classes} classes {loss}: worst leaf |grid - one| '
+              f'- 1e-12 = {worst:.3e} of its update (bound 1e-5; largest '
+              f'update {largest:.3e}); loss grid {on_grid["loss"]:.8f} one '
+              f'{one["loss"]:.8f}; {seconds:.1f} s on {smi}')
+        for key, value in one.items():
+            require(abs(on_grid[key] - value) <= 1e-5 * abs(value) + 1e-12,
+                    f'{grid} {loss}: {key} {on_grid[key]} != {value}')
+        require(worst <= 1e-5, f'{grid} {loss}: grid step != one rank '
+                f'({worst})')
+    print(f'  (2, 1) bf16 at global batch 100: {out["bf16_ms"]:.3f} ms a '
+          f'step on {smi}, loss {out["bf16_loss"]:.4f} ({out["bf16_s"]:.1f}'
+          ' s with the state and a first step); gloo stages every '
+          'collective through the host and both ranks share one card: '
+          'no multi-GPU rate')
+
+    print(f'[33] pair statistics on two ranks: N={emb.shape[0]} '
+          f'D={emb.shape[1]} T=100, each rank with its half of the rows '
+          '(sharded, plain torch) and each with the full set (B1 on each '
+          'rank, no collective), against B1 on one rank (phase 6\'s '
+          'inputs)')
+    b1 = pair_counts.pair_histogram(inputs).cumsum(1)
+    sharded = torch.from_numpy(out['hist']).cuda().cumsum(1)
+    diff = (sharded - b1).abs()
+    limit = near_cutoff_weight(inputs) + 1e-6 * b1.abs() + 1e-12
+    thresholds = np.linspace(0, 4.0, 100).astype(np.float32)
+    alone = statistics.confusion_counts(emb, pair_labels, thresholds,
+                                        device='cuda')
+    full_diff = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+                    for a, b in zip(out['full_counts'], alone))
+    print(f'  sharded: max |sharded - B1| {float(diff.max()):.3e}, '
+          f'{out["pairs_ms"]:.3f} ms wall (two ranks on one card, gloo); '
+          f'full set: {out["full_launches"]} B1 launch on rank 0, counts '
+          f'within {full_diff:.3e} of one rank\'s (relative), '
+          f'{out["full_ms"]:.3f} ms wall for confusion_counts (both ranks\' '
+          f'B1 at once on one card); B1 alone {context["pair_ms"]:.3f} ms '
+          f'(phase 6) on {smi}')
+    require(not bool((diff > limit).any()),
+            f'sharded counts != B1: max excess '
+            f'{float((diff - limit).max()):.3e}')
+    require(out['full_launches'] == 1 and full_diff <= 1e-6,
+            f'full-set counts: {out["full_launches"]} launches, '
+            f'{full_diff:.3e} off')
+
+    print('[34] evaluate_embeddings(mesh=) on two ranks: 1,000 images in '
+          'batches of 111 (each split 56 + 55 with a padded row; the last '
+          'batch one image), full-width IRv1 in float32 without TF32')
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        net = InceptionResnetV1().from_flax_variables(init_variables(seed=0))
+        net = net.cuda().eval()
+        images = np.random.default_rng(34).integers(
+            0, 256, (1000, 160, 160, 3), dtype=np.uint8)
+        with torch.inference_mode():
+            one = torch.cat([net(torch.from_numpy(images[i:i + 111]).cuda())
+                             for i in range(0, 1000, 111)]).cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    rows = out['rows']
+    cos = (rows * one).sum(1) / (np.linalg.norm(rows, axis=1)
+                                 * np.linalg.norm(one, axis=1))
+    print(f'  rows {rows.shape}, min cosine against one rank '
+          f'{cos.min():.8f}, order {"kept" if np.array_equal(out["order"], np.arange(1000)) else "LOST"}; '
+          f'{out["extract_s"]:.2f} s wall on two ranks of {smi}')
+    require(rows.shape == (1000, 512) and cos.min() >= 0.99999
+            and np.array_equal(out['order'], np.arange(1000)),
+            f'sharded extraction off: {cos.min()}')
+    print(f'  phases 32-34 {group_s:.1f} s for the two ranks (their '
+          'start-up ran during phase 31); phases 31-34 in '
+          f'{time.monotonic() - started:.1f} s '
+          f'on {smi}')
+
+
+def hundreds(images, labels):
+    """Phase 25's batches of 100."""
+    return [(images[i:i + 100], labels[i:i + 100])
+            for i in range(0, len(images), 100)]
+
+
+def ids_for_pk(labels):
+    """4 identities with at least two images each, in label order."""
+    values, counts = np.unique(labels, return_counts=True)
+    return values[counts >= 2][:4]
 
 
 def main():
@@ -2210,6 +2643,7 @@ def main():
           f'full N x N product {library_ms:.3f} ms ({_spread(library_all)}), '
           f'bound {bound_ms:.3f} ms (3 x {flops:.3e} flop at the TF32 '
           f'tensor-core rate; {fp32_ms:.3f} ms at the FP32 rate)')
+    pair_inputs = (emb, labels, inputs)
     for label, (ms, windows) in pair_split_times(pair_counts, emb, labels,
                                                  t).items():
         print(f'  kernel at {label}: {ms:.3f} ms ({_spread(windows)})')
@@ -2243,11 +2677,12 @@ def main():
     }
     context, detection = detection_phases(rng, libs, bundle)
     context.update(smi=smi, variables=variables, facenet=facenet,
-                   bundle=bundle)
+                   bundle=bundle, pair_inputs=pair_inputs, pair_ms=kern_ms)
     slice3 = slice3_phases(rng, libs, context)
     slice7_phases(rng, context)
     slice8_phases(rng, context)
     slice9_phases(rng, context)
+    slice10_phases(context)
 
     print(f'total {time.monotonic() - started:.1f} s')
     print(json.dumps({'kernels': [pair_entry] + detection + slice3}))

@@ -3,9 +3,11 @@
 The output container follows the suffix of the output file: `.h5`
 (``embeddings`` and ``labels``), `.npz` (numpy archive with the file
 names) or `.tfrecord` (one tf.train.Example per image, utils/tfrecord.py).
-Runs on the GPU unless ``--device cpu``.
+Runs on the GPU unless ``--device cpu``. Under torchrun, with a ``mesh:``
+section, the batches split over the ranks and data rank 0 writes the file.
 
     python -m facenet_tpu_torch.apps.embeddings --config my.yaml [--device cpu]
+    torchrun --nproc-per-node N -m facenet_tpu_torch.apps.embeddings --config my.yaml
 
 A `pipeline:` config section embeds RAW SCENES (un-cropped photos):
 detection, alignment and the embedding forward run through `FacePipeline`
@@ -28,7 +30,7 @@ from pathlib import Path
 import numpy as np
 
 from facenet_tpu_torch import config, dataset, facenet, h5utils, ioutils
-from facenet_tpu_torch.device import resolve_device
+from facenet_tpu_torch.parallel.mesh import join_torchrun, world
 
 
 def save_h5(path, embeddings, labels, files):
@@ -100,7 +102,7 @@ def main(argv=None):
                         help="torch device, 'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
 
-    device = resolve_device(args.device)
+    device = join_torchrun(args.device)
     options = config.embeddings(__file__, {'config': args.config_file})
 
     dbase = dataset.DBase(options.dataset)
@@ -110,6 +112,9 @@ def main(argv=None):
     else:
         result = facenet.EvaluationOfEmbeddings(dbase, options, device=device)
         files = dbase.files
+    # every rank holds every row; rank 0 (data rank 0) alone writes them
+    if world()[1] != 0:
+        return result
 
     for part in (dbase, result):
         ioutils.write_text_log(options.logfile, part)

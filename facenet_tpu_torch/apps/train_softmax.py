@@ -8,7 +8,10 @@ every epoch's end -> validation every ``validate.every_n_epochs`` epochs
 and at the last -> the backbone exported as a model bundle in the run
 directory. ``model.weights`` warm-starts the backbone from a bundle;
 ``model.checkpoint`` resumes a run of this app, data cursor included.
-Runs on the GPU unless ``--device cpu``.
+Runs on the GPU unless ``--device cpu``; in a process group (the
+train_softmax_distributed app) on the ``mesh:`` grid over its ranks, every
+rank drawing the same global batches and decoding and training on its own
+rows of them, rank 0 writing the logs, reports and the bundle.
 
     python -m facenet_tpu_torch.apps.train_softmax --config my.yaml [--device cpu]
 """
@@ -16,11 +19,13 @@ Runs on the GPU unless ``--device cpu``.
 from __future__ import annotations
 
 import argparse
+import functools
 import math
 from pathlib import Path
 
 from facenet_tpu_torch import callbacks, config, dataset, export, ioutils
 from facenet_tpu_torch.device import resolve_device
+from facenet_tpu_torch.parallel.mesh import barrier, batch_rows, world
 from facenet_tpu_torch.train.checkpoint import CheckpointManager
 from facenet_tpu_torch.train.softmax import SoftmaxTrainer
 
@@ -42,8 +47,14 @@ def main(argv=None):
 
 
 def run(cfg, device=None):
-    """The training flow from a prepared config."""
+    """The training flow from a prepared config, on the process group's
+    ranks when there is one."""
     report_file = cfg.logs.dir / 'report.txt'
+    root = world()[1] == 0
+
+    def log(text):
+        if root:
+            ioutils.write_text_log(report_file, text)
 
     # With random_crop the training loader reads larger images
     # (image.load_size, default size + 22) and the step crops them back to
@@ -57,22 +68,22 @@ def run(cfg, device=None):
         train_loader = loader
 
     train_dbase = dataset.Database(cfg.dataset)
-    ioutils.write_text_log(report_file, train_dbase)
+    log(train_dbase)
 
     use_pk_sampler = (str(cfg.sampler or '') == 'pk' or
                       float(cfg.loss.triplet_factor or 0.0) > 0)
 
-    def train_batches(start_state=None):
+    def train_batches(start_state, rows):
         # semi-hard triplet mining needs same-class pairs in every batch
         if use_pk_sampler:
             return dataset.pipeline_with_equal_batches(
                 train_loader, train_dbase.classes, cfg, seed=int(cfg.seed),
-                start_state=start_state)
+                start_state=start_state, rows=rows)
         return train_dbase.batches(train_loader,
                                    batch_size=int(cfg.batch_size),
                                    shuffle=True, repeat=True,
                                    drop_remainder=True, seed=int(cfg.seed),
-                                   start_state=start_state)
+                                   start_state=start_state, rows=rows)
 
     test_dbase = dataset.Database(cfg.validate.dataset)
 
@@ -82,10 +93,10 @@ def run(cfg, device=None):
     trainer = SoftmaxTrainer(cfg, nrof_classes=train_dbase.nrof_classes,
                              model_cfg=cfg.model, device=device)
 
-    # P x K batches split evenly over the data shards; one device is one
-    # shard, so this changes nothing until the trainer is distributed
+    # P x K batches must split evenly over the data shards: P goes up to
+    # the next value that splits, rather than failing at the first step
     if use_pk_sampler:
-        n_data = 1
+        n_data = trainer.mesh.data
         p = int(config.value_or(cfg.nrof_classes_per_batch, 20))
         k = int(config.value_or(cfg.nrof_examples_per_class, 5))
         if (p * k) % n_data != 0:
@@ -125,12 +136,14 @@ def run(cfg, device=None):
         config=cfg.validate,
         report_file=report_file,
         h5file=cfg.logs.dir / 'report.h5',
-        device=trainer.device)
+        device=trainer.device, mesh=trainer.mesh)
 
     # the pipeline's cursor rides along in every checkpoint, so a killed
-    # run resumes mid-epoch on the exact next batch
+    # run resumes mid-epoch on the exact next batch; on a grid every rank
+    # draws the same global batches and decodes only its own rows of them
     max_epochs = int(cfg.train.epoch.max_nrof_epochs)
-    pipeline = train_batches(start_state=data_state)
+    pipeline = train_batches(start_state=data_state,
+                             rows=functools.partial(batch_rows, trainer.mesh))
     batches_iter = iter(pipeline)
 
     # 0 is a valid freeze epoch, so no `or`-defaulting
@@ -143,13 +156,13 @@ def run(cfg, device=None):
                                              frozen_bn=frozen)
         print(f'epoch [{epoch + 1}/{max_epochs}] ' +
               ' '.join(f'{k}={v:.4f}' for k, v in metrics.items()))
-        ioutils.write_text_log(report_file,
-                               f'epoch [{epoch + 1}/{max_epochs}] {metrics}')
+        log(f'epoch [{epoch + 1}/{max_epochs}] {metrics}')
 
         ckpt.save(int(state.step), state, data_state=pipeline.state())
         validate_cb.on_epoch_end(epoch, state)
 
     export.save_model(cfg.model.path, state.model.backbone)
+    barrier()
     ckpt.close()
 
     print(f'Model and logs have been saved to the directory: {cfg.model.path}')

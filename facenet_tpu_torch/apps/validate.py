@@ -3,9 +3,13 @@
 Index the dataset, run every image through the model, feed the
 L2-normalized embeddings to FaceToFaceValidation, and append each stage's
 repr to the run log (``<dataset>_<model>/validate.txt``); the report also
-lands in ``validate.h5``. Runs on the GPU unless ``--device cpu``.
+lands in ``validate.h5``. Runs on the GPU unless ``--device cpu``. Under
+torchrun, with a ``mesh:`` section, the extraction splits over the ranks;
+each rank loads the whole set and holds every embedding, so each computes
+the pair statistics alone, and rank 0 writes.
 
     python -m facenet_tpu_torch.apps.validate --config my.yaml [--device cpu]
+    torchrun --nproc-per-node N -m facenet_tpu_torch.apps.validate --config my.yaml
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ import argparse
 from pathlib import Path
 
 from facenet_tpu_torch import config, dataset, facenet, ioutils, statistics
-from facenet_tpu_torch.device import resolve_device
+from facenet_tpu_torch.parallel import mesh as mesh_mod
 
 
 def main(argv=None):
@@ -28,13 +32,15 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     started = ioutils.get_time()
-    device = resolve_device(args.device)
+    device = mesh_mod.join_torchrun(args.device)
     options = config.validate(__file__, {'config': args.config_file})
     options.model.normalize = True
+    root = mesh_mod.world()[1] == 0
 
     def stage(obj):
         """Every pipeline stage logs its repr to the run log and stdout."""
-        ioutils.write_text_log(options.logfile, obj)
+        if root:
+            ioutils.write_text_log(options.logfile, obj)
         print(obj)
         return obj
 
@@ -44,6 +50,8 @@ def main(argv=None):
     report = stage(statistics.FaceToFaceValidation(
         evaluation.embeddings, evaluation.labels, options.validate,
         device=device))
+    if not root:
+        return report
     report.write_h5file(Path(options.logfile).with_suffix('.h5'))
 
     ioutils.write_elapsed_time(options.logfile, started)

@@ -4,7 +4,10 @@ checkpoints, as plain ``on_epoch_end(epoch, state)`` callables.
 Validation embeds the test set with the trainer's forward
 (`facenet.evaluate_embeddings`) and runs the K-fold
 `statistics.FaceToFaceValidation`, whose pair counts are the CUDA kernel
-``pair_below_counts`` on the card.
+``pair_below_counts`` on the card. On a grid with more than one data rank
+the extraction splits over the data ranks; every rank holds the whole test
+set and its embeddings, so each counts the pairs itself with the kernel,
+and rank 0 alone writes the reports.
 """
 
 from __future__ import annotations
@@ -22,11 +25,12 @@ class ValidateCallback:
     :param config: a section whose ``validate`` holds metric, nrof_folds
         and far_target
     :param device: where the validation statistics run (default 'cuda')
+    :param mesh: the trainer's grid, or None on one device
     """
 
     def __init__(self, forward_factory, batches_factory, every_n_epochs,
                  max_nrof_epochs, config, report_file=None, h5file=None,
-                 device=None):
+                 device=None, mesh=None):
         self.forward_factory = forward_factory
         self.batches_factory = batches_factory
         self.every_n_epochs = int(every_n_epochs or 10)
@@ -35,6 +39,8 @@ class ValidateCallback:
         self.report_file = report_file
         self.h5file = h5file
         self.device = device
+        self.mesh = mesh if mesh is not None and mesh.data > 1 else None
+        self.writes = mesh is None or mesh.rank == 0
         self.last_validation = None
 
     def on_epoch_end(self, epoch, state):
@@ -46,14 +52,14 @@ class ValidateCallback:
 
         forward = self.forward_factory(state)
         embeddings, labels = facenet.evaluate_embeddings(
-            forward, self.batches_factory())
+            forward, self.batches_factory(), mesh=self.mesh)
 
         validation = statistics.FaceToFaceValidation(
             embeddings, labels, self.config.validate, device=self.device)
 
-        if self.report_file:
+        if self.writes and self.report_file:
             validation.write_report(self.report_file)
-        if self.h5file:
+        if self.writes and self.h5file:
             validation.write_h5file(self.h5file, tag=f'epoch_{epoch1}')
 
         self.last_validation = validation

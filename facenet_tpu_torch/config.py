@@ -193,7 +193,12 @@ def load_config(app_file_name, options=None):
 
 
 def _write_provenance(cfg, logdir, app_file_name):
+    """The config and the revision in `logdir`, by rank 0 of a process
+    group (the only process without one)."""
     from facenet_tpu_torch import ioutils
+    from facenet_tpu_torch.parallel.mesh import world
+    if world()[1] != 0:
+        return
     ioutils.write_arguments(cfg, Path(logdir) / (Path(app_file_name).stem + '.yaml'))
     ioutils.store_revision_info(logdir)
 
@@ -283,17 +288,18 @@ def validate_on_lfw(app_file_name, options):
     return cfg
 
 
-def train_softmax(options, app_file_name=None):
+def train_softmax(options, app_file_name=None, run_name=None):
     """Config for the train_softmax app: the run directory
-    ``<model.path>/<timestamp>`` with ``logs/`` inside, ``model.checkpoint``
-    expanded, ``train.epoch.max_nrof_epochs`` defaulting to the last
-    schedule row's epoch, the validation batch size and image settings
-    taken from the training ones, seeded RNGs, provenance written."""
+    ``<model.path>/<run_name>`` (default a timestamp) with ``logs/``
+    inside, ``model.checkpoint`` expanded, ``train.epoch.max_nrof_epochs``
+    defaulting to the last schedule row's epoch, the validation batch size
+    and image settings taken from the training ones, seeded RNGs,
+    provenance written."""
     app_file_name = app_file_name or sys.argv[0]
     cfg = load_config(app_file_name, options)
 
     path = Path(str(cfg.model.path)).expanduser()
-    cfg.model.path = path / subdir()
+    cfg.model.path = path / (run_name or subdir())
 
     cfg.logs = Config()
     cfg.logs.dir = cfg.model.path / 'logs'
@@ -313,3 +319,35 @@ def train_softmax(options, app_file_name=None):
     cfg.seed_key = set_seed(cfg.seed)
     _write_provenance(cfg, cfg.logs.dir, app_file_name)
     return cfg
+
+
+def distributed_options(section):
+    """`parallel.mesh.init_distributed`'s keyword arguments from a
+    ``distributed:`` section (the JAX package's keys); empty keys are left
+    to its defaults."""
+    keys = ('coordinator_address', 'num_processes', 'process_id',
+            'platform')
+    values = {k: value_or(getattr(section, k), None) for k in keys}
+    return {k: v for k, v in values.items() if v is not None}
+
+
+def train_softmax_distributed(options, app_file_name=None, device=None):
+    """Config and device for the distributed train app: the process group
+    comes up first, from the ``distributed:`` section (or torchrun's
+    environment), before any CUDA work; then `train_softmax`'s config with
+    one run directory for every rank (rank 0's timestamp) and the
+    provenance written by rank 0.
+
+    :param device: 'cuda' (default) or 'cpu' (``distributed.platform:
+        cpu`` says the same)
+    :return: (cfg, this process's device)
+    """
+    from facenet_tpu_torch.parallel import mesh
+
+    app_file_name = app_file_name or sys.argv[0]
+    raw = load_config(app_file_name, options)
+    device = mesh.init_distributed(
+        device=device, **distributed_options(raw.distributed))
+    run_name = mesh.broadcast_object(subdir())
+    cfg = train_softmax(options, app_file_name, run_name=run_name)
+    return cfg, device

@@ -151,15 +151,16 @@ class Database:
 
     def batches(self, loader, batch_size, shuffle=False, repeat=False,
                 drop_remainder=False, num_workers=8, prefetch=2, seed=None,
-                start_state=None):
+                start_state=None, rows=None):
         """`BatchLoader` over (files, labels): in index order by default
         (the last batch may be smaller), shuffled per epoch from `seed`,
-        repeated, resumed from a `start_state` cursor."""
+        repeated, resumed from a `start_state` cursor, with only `rows` of
+        each batch decoded."""
         return BatchLoader(self.files, self.labels, loader, batch_size,
                            shuffle=shuffle, repeat=repeat,
                            drop_remainder=drop_remainder,
                            num_workers=num_workers, prefetch=prefetch,
-                           seed=seed, start_state=start_state)
+                           seed=seed, start_state=start_state, rows=rows)
 
 
 DBase = Database
@@ -214,11 +215,16 @@ class BatchLoader:
     `state()` captures the cursor; constructing with `start_state=`
     continues the exact sample sequence, so a mid-epoch resume neither skips
     nor repeats an image.
+
+    `rows`, a function of a batch's index array, picks the part of each
+    batch this process decodes and yields (`parallel.mesh.batch_rows` of a
+    grid: every data rank draws the same global batches, the cursor
+    included, and loads only its own rows of them).
     """
 
     def __init__(self, files, labels, loader, batch_size, shuffle=False,
                  repeat=False, drop_remainder=False, num_workers=8,
-                 prefetch=2, seed=None, start_state=None):
+                 prefetch=2, seed=None, start_state=None, rows=None):
         self.files = list(files)
         self.labels = np.asarray(labels, dtype=np.int32)
         self.loader = loader
@@ -228,6 +234,7 @@ class BatchLoader:
         self.drop_remainder = drop_remainder
         self.num_workers = num_workers
         self.prefetch = prefetch
+        self.rows = rows or (lambda idx: idx)
         if seed is None:
             seed = int(np.random.randint(0, 2 ** 31 - 1))
         self.seed = int(seed)
@@ -314,6 +321,7 @@ class BatchLoader:
                     for idx in self._index_stream():
                         if stop.is_set():
                             return
+                        idx = self.rows(idx)
                         images = list(pool.map(
                             lambda i: self.loader(self.files[i]), idx))
                         batch = np.stack(images)
@@ -356,11 +364,12 @@ class PKPipeline:
     classes, then K images of each, all without replacement — so the
     stream is a pure function of the batch counter and the seed, the same
     stream the JAX package draws. `state()` is that counter; `start_state=`
-    continues it. Images load on a thread pool.
+    continues it. Images load on a thread pool; `rows` picks the part of
+    each batch that is loaded and yielded, as `BatchLoader`'s.
     """
 
     def __init__(self, loader, classes, config, seed=None, num_workers=8,
-                 start_state=None):
+                 start_state=None, rows=None):
         self.p = int(config.nrof_classes_per_batch or 20)
         self.k = int(config.nrof_examples_per_class or 5)
         config.nrof_classes_per_batch = self.p
@@ -368,6 +377,7 @@ class PKPipeline:
 
         self.loader = loader
         self.num_workers = num_workers
+        self.rows = rows or (lambda idx: idx)
         if seed is None:
             seed = int(np.random.randint(0, 2 ** 31 - 1))
         self.seed = int(seed)
@@ -408,6 +418,7 @@ class PKPipeline:
             b = self._batch
             while True:
                 idx, labels = self._sample(b)
+                idx, labels = self.rows(idx), self.rows(labels)
                 images = list(pool.map(
                     lambda i: self.loader(self.all_files[i]), idx))
                 # the cursor counts a batch once it is handed out
@@ -425,7 +436,8 @@ class PKPipeline:
 
 
 def pipeline_with_equal_batches(loader, classes, config, seed=None,
-                                num_workers=8, start_state=None):
+                                num_workers=8, start_state=None, rows=None):
     """`PKPipeline` under the reference's name."""
     return PKPipeline(loader, classes, config, seed=seed,
-                      num_workers=num_workers, start_state=start_state)
+                      num_workers=num_workers, start_state=start_state,
+                      rows=rows)

@@ -236,14 +236,18 @@ def _yaml_nulls(tree):
 
 def save_model(path, model):
     """Write a bundle of the model's current weights that this package and
-    the JAX package both load.
+    the JAX package both load. In a process group rank 0 writes it (the
+    backbone is the same on every rank) and the others return at once.
 
     :param model: an `InceptionResnetV1` or `InceptionResnetV2`; its class
         name, config as given, image size and normalization are recorded
     """
     from facenet_tpu_torch.config import Config, _yaml_lines
+    from facenet_tpu_torch.parallel.mesh import world
 
     path = Path(str(path)).expanduser()
+    if world()[1] != 0:
+        return path
     path.mkdir(parents=True, exist_ok=True)
 
     cfg = model.config

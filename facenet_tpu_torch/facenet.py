@@ -1,5 +1,5 @@
-"""Batch embedding evaluation over a dataset, and the stored-embeddings
-loader."""
+"""Batch embedding evaluation over a dataset (on one rank, or split over a
+grid's data ranks), and the stored-embeddings loader."""
 
 from __future__ import annotations
 
@@ -21,7 +21,36 @@ def renormalized(embeddings):
     return (embeddings / np.maximum(norms, 1e-10)).astype(np.float32)
 
 
-def evaluate_embeddings(forward_fn, batches, renormalize=True):
+def sharded_forward(forward_fn, mesh):
+    """Data-parallel extraction: every data rank embeds its part of each
+    batch and the parts come back to every rank in order.
+
+    A batch is zero-padded to a multiple of the data ranks, rank d embeds
+    rows [d * B / data, (d + 1) * B / data) of it, an all_gather over the
+    data group puts the rows back in order, and the padding is trimmed.
+    Every rank passes the same batch and gets the same [B, D] tensor on its
+    device. ``.dispatch`` is the same function (the JAX package's async
+    entry; the gather already waits for every rank's rows).
+    """
+    from facenet_tpu_torch.parallel.mesh import gather_values
+
+    def fn(images):
+        images = torch.as_tensor(images)
+        n = images.shape[0]
+        per = -(-n // mesh.data)
+        pad = per * mesh.data - n
+        if pad:
+            images = torch.cat([images, images.new_zeros(
+                (pad,) + tuple(images.shape[1:]))])
+        rows = images[mesh.data_index * per:(mesh.data_index + 1) * per]
+        out = torch.as_tensor(forward_fn(rows)).to(mesh.device)
+        return gather_values(out, mesh.data_group)[:n]
+
+    fn.dispatch = fn
+    return fn
+
+
+def evaluate_embeddings(forward_fn, batches, renormalize=True, mesh=None):
     """Run `forward_fn` over all batches; concatenate embeddings and labels.
 
     :param forward_fn: images [B,H,W,3] uint8 -> [B,D] embeddings, as a
@@ -30,6 +59,9 @@ def evaluate_embeddings(forward_fn, batches, renormalize=True):
     :param renormalize: re-apply exact L2 normalization in float64 on the
         host; the statistics check unit norms to 1e-5 and the forward runs
         in bf16
+    :param mesh: a grid: the batches split over its data ranks
+        (`sharded_forward`); every rank passes the same batches and gets
+        every row
     :return: (embeddings [N, D] float32, labels [N])
 
     The loop keeps one batch in flight: batch n+1 is dispatched before
@@ -38,6 +70,8 @@ def evaluate_embeddings(forward_fn, batches, renormalize=True):
     to the host right after its dispatch, and the fetch waits for that copy
     alone, not for the batch queued behind it.
     """
+    if mesh is not None:
+        forward_fn = sharded_forward(forward_fn, mesh)
     embeddings_ = []
     labels_ = []
 
@@ -149,7 +183,9 @@ class Embeddings:
 
 class EvaluationOfEmbeddings:
     """Batched embedding extraction over a Database with the `FaceNet`
-    runtime of ``config.model``."""
+    runtime of ``config.model``, split over the data ranks of the grid a
+    ``mesh:`` section describes (`parallel.mesh.eval_mesh`,
+    `sharded_forward`)."""
 
     def __init__(self, dbase, config, forward_fn=None, device=None):
         from facenet_tpu_torch.dataset import ImageLoader
@@ -168,8 +204,11 @@ class EvaluationOfEmbeddings:
         loader = ImageLoader(config=config.image)
         batches = dbase.batches(loader, batch_size=int(config.batch_size or 100))
 
+        from facenet_tpu_torch.parallel.mesh import eval_mesh
+        self.mesh = mesh = eval_mesh(config.mesh, device)
+
         self.embeddings, self.labels = evaluate_embeddings(
-            forward_fn, batches, renormalize=renormalize)
+            forward_fn, batches, renormalize=renormalize, mesh=mesh)
         logger.info(str(self))
 
     def __repr__(self):

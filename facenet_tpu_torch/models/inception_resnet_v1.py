@@ -14,7 +14,10 @@ BatchNorm is center-only (a trainable bias, no scale) with eps 1e-3. At
 inference it runs on its running statistics; with ``train=True`` it
 normalizes with the batch's statistics as flax 0.12 computes them
 (reductions in at least float32, the biased variance max(0, E[x^2] - E[x]^2)) and moves the
-running statistics by ra = 0.99 ra + 0.01 batch. Every conv and dense
+running statistics by ra = 0.99 ra + 0.01 batch. On a process grid
+(`set_batch_group`) the batch's statistics are the global batch's: one
+all_reduce per layer of (sum x, sum x^2) over the data ranks, through which
+the backward runs as well. Every conv and dense
 kernel carries L2(5e-4) weight decay, added to the loss by
 `l2_regularization`.
 
@@ -41,6 +44,7 @@ from torch import nn
 
 from facenet_tpu_torch.config import Config
 from facenet_tpu_torch.ops.preprocessing import image_processing
+from facenet_tpu_torch.parallel.mesh import group_size, sum_over
 
 default_config = {
     'reduction_a': {'filters': [[384], [192, 192, 256]]},
@@ -68,7 +72,7 @@ def check_input_config(cfg=None):
     return base
 
 
-def _glorot_uniform(rng, shape):
+def glorot_uniform(rng, shape):
     """flax's glorot_uniform for a kernel whose last two axes are (in, out)."""
     receptive = int(np.prod(shape[:-2])) if len(shape) > 2 else 1
     fan_in, fan_out = shape[-2] * receptive, shape[-1] * receptive
@@ -170,7 +174,7 @@ class Conv(nn.Module):
 
     def flax_variables(self, rng):
         cout, cin = self.weight.shape[:2]
-        params = {'kernel': _glorot_uniform(rng, self.kernel + (cin, cout))}
+        params = {'kernel': glorot_uniform(rng, self.kernel + (cin, cout))}
         if self.bias is not None:
             params['bias'] = np.zeros((cout,), np.float32)
         return params, {}
@@ -202,7 +206,7 @@ class Dense(nn.Module):
 
     def flax_variables(self, rng):
         cout, cin = self.weight.shape
-        params = {'kernel': _glorot_uniform(rng, (cin, cout))}
+        params = {'kernel': glorot_uniform(rng, (cin, cout))}
         if self.bias is not None:
             params['bias'] = np.zeros((cout,), np.float32)
         return params, {}
@@ -220,7 +224,12 @@ class BatchNorm(nn.Module):
 
     `update_running` false keeps the running statistics as they are in a
     train-mode forward (a recomputing backward sets it, so that one step
-    moves them once)."""
+    moves them once).
+
+    `group` (a data group of the process grid, None on one rank) makes the
+    train-mode statistics the global batch's (`global_batch_statistics`).
+    The recomputing forward then reuses the sums of the step's first
+    forward instead of reducing them a second time."""
 
     def __init__(self, features):
         super().__init__()
@@ -228,11 +237,19 @@ class BatchNorm(nn.Module):
         self.register_buffer('mean', torch.zeros(features))
         self.register_buffer('var', torch.ones(features))
         self.update_running = True
+        self.group = None
+        self._sums = None
 
     def forward(self, x, train=False):
         shape = (1, -1) + (1,) * (x.ndim - 2)
         if train:
-            mean, var = batch_statistics(x)
+            if self.group is None:
+                mean, var = batch_statistics(x)
+            else:
+                reuse = None if self.update_running else self._sums
+                mean, var, sums = global_batch_statistics(x, self.group,
+                                                          reuse)
+                self._sums = sums.detach()
             if self.update_running:
                 with torch.no_grad():
                     self.mean.copy_(BN_MOMENTUM * self.mean
@@ -272,6 +289,33 @@ def batch_statistics(x):
     var = torch.maximum(mean2 - mean.square(),
                         torch.zeros((), dtype=mean.dtype, device=mean.device))
     return mean, var
+
+
+def global_batch_statistics(x, group, reuse=None):
+    """`batch_statistics` over the global batch whose rows the ranks of
+    `group` hold in equal parts: (mean, biased variance, the reduced sums).
+
+    Each rank's per-channel (sum x, sum x^2) go through one all_reduce
+    (`parallel.mesh.sum_over`, whose backward sums the gradient over the
+    ranks, so the backward is global too); `reuse`, the sums an earlier
+    forward of the step reduced, stands in for that all_reduce."""
+    axes = [0] + list(range(2, x.ndim))
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
+    local = torch.cat([x.sum(dim=axes), x.square().sum(dim=axes)])
+    sums = sum_over(local, group, reuse)
+    count = x.numel() // x.shape[1] * group_size(group)
+    mean, mean2 = (sums / count).chunk(2)
+    var = torch.maximum(mean2 - mean.square(),
+                        torch.zeros((), dtype=mean.dtype, device=mean.device))
+    return mean, var, sums
+
+
+def set_batch_group(module, group):
+    """Every BatchNorm under `module` takes its train-mode statistics over
+    the global batch of `group` (None: its own batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 class ConvBnRelu(_Flax):

@@ -6,7 +6,9 @@
   * weighted binary cross-entropy over upper-triangle pair logits of a
     P x K batch;
   * the triplet loss with online semi-hard negative mining, as a masked
-    minimum over the [anchor, positive, negative] cube of the batch.
+    minimum over the [anchor, positive, negative] cube of the batch;
+  * on a process grid: the center update made from the global batch's
+    diffs, gathered over the data ranks.
 
 Gradients follow the JAX package's: `torch.amin`/`torch.amax` and
 `torch.maximum` split a gradient evenly among tied entries, as ``jnp.min``,
@@ -20,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from facenet_tpu_torch.parallel.mesh import gather_values
+
 
 def softmax_cross_entropy_with_logits(logits, labels):
     """Mean sparse softmax cross-entropy."""
@@ -28,7 +32,7 @@ def softmax_cross_entropy_with_logits(logits, labels):
     return nll.mean()
 
 
-def center_loss(features, labels, centers, alfa):
+def center_loss(features, labels, centers, alfa, group=None):
     """Center loss: (loss, new_centers).
 
         diff = (1 - alfa) * (centers[label] - features)
@@ -42,12 +46,18 @@ def center_loss(features, labels, centers, alfa):
     :param labels: [B] int class ids
     :param centers: [C, D] float32 table
     :param alfa: center update rate
+    :param group: the data ranks holding the rest of the global batch, in
+        its row order: every rank gathers the global batch's diffs and
+        labels and adds them to the table as one device would, so the
+        table stays the same on every rank; the loss is this rank's mean,
+        whose mean over the ranks is the global one
     """
     features = features.float()
     labels = labels.long()
     centers_batch = centers[labels]
     diff = (1 - alfa) * (centers_batch - features.detach())
-    new_centers = centers.index_add(0, labels, -diff)
+    new_centers = centers.index_add(0, gather_values(labels, group),
+                                    -gather_values(diff, group))
     loss = (features - centers_batch).square().mean()
     return loss, new_centers
 

@@ -8,7 +8,11 @@ Per threshold t the confusion counts weigh every class pair equally:
 
 with w = 1/#pairs in that class block, so one pass over the pair matrix
 gives all thresholds (`ops.pair_counts`). On a CUDA device that pass is the
-hand-written kernel; on the CPU its plain PyTorch version.
+hand-written kernel; on the CPU its plain PyTorch version. On a grid (the
+`mesh=` argument) whose ranks each hold the full set, every rank makes that
+pass itself, with no collective; when each data rank holds only its own
+stripe of the rows (``mesh.local_rows``), the rows of the pair matrix split
+over the data ranks instead (`parallel.sharded_eval`).
 
 The K-fold protocol: KFold(nrof_folds, shuffle=True, random_state=0); on
 each fold's train split pick (a) the max-accuracy threshold and (b) the
@@ -27,6 +31,8 @@ from facenet_tpu_torch import h5utils
 from facenet_tpu_torch.device import resolve_device
 from facenet_tpu_torch.logging import logger
 from facenet_tpu_torch.ops.pair_counts import pair_below_counts
+from facenet_tpu_torch.parallel.mesh import allgather_host_varlen
+from facenet_tpu_torch.parallel.sharded_eval import sharded_pair_histograms
 
 
 def kfold_splits(n, n_splits, seed=0):
@@ -65,17 +71,30 @@ def auc(x, y):
 
 
 def confusion_counts(embeddings, labels, thresholds, metric=0, atol=1e-5,
-                     device=None):
+                     device=None, mesh=None):
     """Weighted (tp, fn, fp, tn) per threshold, float64 numpy arrays.
 
-    :param embeddings: [N, D] L2-normalized, numpy or tensor
-    :param labels: [N] class labels (any ints; remapped to a dense range)
+    :param embeddings: [N, D] L2-normalized, numpy or tensor: the rows
+        ``mesh.local_rows`` says this rank holds (all of them by default)
+    :param labels: [N] class labels (any ints; remapped to a dense range,
+        agreed over the data ranks when each holds its own rows)
     :param thresholds: [T] distance thresholds in any order, T <= 127
-    :param device: 'cuda' (default) runs the kernel; 'cpu' the plain version
+    :param device: 'cuda' (default; the mesh's device with a mesh) runs
+        the kernel; 'cpu' the plain version
+    :param mesh: the grid, or None on one rank; with more than one data
+        rank each holding its own stripe (``local_rows``) the rows split
+        over them (`parallel.sharded_eval`)
     """
-    device = resolve_device(device)
+    sharded = mesh is not None and mesh.data > 1 and mesh.local_rows
+    device = resolve_device(mesh.device if device is None and mesh
+                            else device)
     emb = torch.as_tensor(embeddings, dtype=torch.float32).to(device)
-    uniq, dense = np.unique(np.asarray(labels), return_inverse=True)
+    labels = np.asarray(labels)
+    if sharded:
+        uniq = np.unique(allgather_host_varlen(labels, mesh.data_group))
+        dense = np.searchsorted(uniq, labels)
+    else:
+        uniq, dense = np.unique(labels, return_inverse=True)
     num_classes = len(uniq)
 
     norms = torch.linalg.vector_norm(emb, dim=1)
@@ -89,9 +108,16 @@ def confusion_counts(embeddings, labels, thresholds, metric=0, atol=1e-5,
     order = np.argsort(thresholds, kind='stable')
     sorted_t = thresholds[order]
 
-    below_pos, below_neg, total_pos, total_neg = pair_below_counts(
-        emb, dense.reshape(-1), sorted_t, metric=int(metric),
-        num_classes=num_classes)
+    if sharded:
+        hist_pos, hist_neg = sharded_pair_histograms(
+            emb, dense.reshape(-1), sorted_t, num_classes, int(metric), mesh)
+        below_pos = np.cumsum(hist_pos)[:-1]
+        below_neg = np.cumsum(hist_neg)[:-1]
+        total_pos, total_neg = hist_pos.sum(), hist_neg.sum()
+    else:
+        below_pos, below_neg, total_pos, total_neg = pair_below_counts(
+            emb, dense.reshape(-1), sorted_t, metric=int(metric),
+            num_classes=num_classes)
 
     nrof_neg_class_pairs = num_classes * (num_classes - 1) / 2
     tp_s = below_pos / num_classes
@@ -114,10 +140,12 @@ def confusion_counts(embeddings, labels, thresholds, metric=0, atol=1e-5,
 class ConfidenceMatrix:
     """Confusion matrix (tp, tn, fp, fn) over thresholds."""
 
-    def __init__(self, embeddings, labels, threshold, metric=0, device=None):
+    def __init__(self, embeddings, labels, threshold, metric=0, device=None,
+                 mesh=None):
         self.threshold = np.array(threshold, ndmin=1)
         self.tp, self.fn, self.fp, self.tn = confusion_counts(
-            embeddings, labels, self.threshold, metric=metric, device=device)
+            embeddings, labels, self.threshold, metric=metric, device=device,
+            mesh=mesh)
 
     def _ratio(self, num, denom):
         """num / denom per threshold; 1.0 where the denominator is empty
@@ -235,6 +263,7 @@ class FaceToFaceValidation:
     split pick (a) the max-accuracy threshold and (b) the threshold whose
     FAR equals `far_target` (linear interpolation); score both on the test
     split; report across folds. The embeddings move to `device` once.
+    On a grid every rank holds the full set and validates it alone.
     """
 
     # threshold grid upper bound per metric: squared Euclidean of unit

@@ -7,6 +7,12 @@ pipeline's cursor, so that a resumed run continues on the exact next
 batch. Each lives in ``<directory>/<step>/state.pt``, written to a
 temporary name and renamed, and at most ``max_to_keep`` stay.
 
+On a process grid every rank calls `save` and `restore`: the head and its
+Adam moments are gathered whole (`train.softmax.full_state_dict`), rank 0
+writes, and every rank reads and keeps its own columns, with a barrier
+after the write and before the read. A checkpoint written on any grid
+restores on any other and on a single process.
+
 The format is the port's own: the JAX package's Orbax checkpoint
 directories are not read here, nor these by it (a model bundle,
 `export.save_model`, is what the two packages share).
@@ -20,17 +26,11 @@ from pathlib import Path
 
 import torch
 
+from facenet_tpu_torch.parallel.mesh import barrier, world
+from facenet_tpu_torch.train.softmax import (full_state_dict,
+                                             load_full_state_dict)
+
 STATE_FILE = 'state.pt'
-
-
-def _to_savable(state):
-    return {
-        'step': int(state.step),
-        'model': state.model.state_dict(),
-        'optimizer': state.optimizer.state_dict(),
-        'centers': state.centers,
-        'generator': state.generator.get_state(),
-    }
 
 
 class CheckpointManager:
@@ -50,16 +50,18 @@ class CheckpointManager:
         """Save `state` as step `step`, with the pipeline cursor
         `data_state` (a dict of ints: ``BatchLoader`` / ``PKPipeline``
         ``.state()``) beside it; drop the oldest past `max_to_keep`."""
-        savable = _to_savable(state)
+        savable = full_state_dict(state)
         if data_state is not None:
             savable['data_state'] = {k: int(v) for k, v in data_state.items()}
-        target = self.directory / str(int(step))
-        target.mkdir(exist_ok=True)
-        tmp = target / (STATE_FILE + '.tmp')
-        torch.save(savable, tmp)
-        os.replace(tmp, target / STATE_FILE)
-        for old in self.steps()[:-self.max_to_keep]:
-            shutil.rmtree(self.directory / str(old))
+        if world()[1] == 0:
+            target = self.directory / str(int(step))
+            target.mkdir(exist_ok=True)
+            tmp = target / (STATE_FILE + '.tmp')
+            torch.save(savable, tmp)
+            os.replace(tmp, target / STATE_FILE)
+            for old in self.steps()[:-self.max_to_keep]:
+                shutil.rmtree(self.directory / str(old))
+        barrier()
 
     def latest_step(self):
         steps = self.steps()
@@ -72,6 +74,7 @@ class CheckpointManager:
         :return: the state, or None without a checkpoint; with
             `with_data_state`, (state, cursor dict or None)
         """
+        barrier()
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -79,12 +82,7 @@ class CheckpointManager:
         device = next(state.model.parameters()).device
         saved = torch.load(self.directory / str(int(step)) / STATE_FILE,
                            map_location=device, weights_only=True)
-        state.model.load_state_dict(saved['model'])
-        state.optimizer.load_state_dict(saved['optimizer'])
-        centers = saved['centers']
-        state.centers = None if centers is None else centers.to(device)
-        state.generator.set_state(saved['generator'].cpu())
-        state.step = int(saved['step'])
+        load_full_state_dict(state, saved)
         data_state = saved.get('data_state')
         return (state, data_state) if with_data_state else state
 

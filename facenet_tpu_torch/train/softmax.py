@@ -25,11 +25,52 @@ statistics, running statistics moved once), the losses, backward, Adam at
 backward recomputes its activations instead of keeping them. `frozen_bn`
 steps normalize with the running statistics and leave them untouched,
 while every parameter still trains.
+
+On a (data, model) process grid (`parallel.mesh`, the ``mesh:`` section or
+``mesh=``) a step computes what the same step computes on one device, as
+the JAX package's step under its mesh does: every rank sees the same global
+batch and trains on its data rank's rows; BatchNorm's statistics, the
+center update, the triplet loss's mining and every metric are the global
+batch's; each model rank holds C / model columns of the logits head and of
+Adam's moments for it and computes those columns' logits, the columns are
+gathered into whole rows for the cross-entropy and the accuracy's argmax,
+and the head's L2 term is summed over the model ranks. (A log-softmax
+sharded by columns, its maxima and sums of exponentials reduced over the
+model ranks, rounds its float32 sums in another order than log_softmax
+does on the whole row, which put a float64 step on the (1, 2) grid 1.1e-6
+to 1.4e-6 of a leaf's update away from the single device's; on the whole
+rows the loss's arithmetic is the single device's. The rows cost
+B x C float32 a rank, against the C x D weights and Adam's moments that
+stay split.) The augmentation draws are
+made for the global batch from the same generator on every rank, which
+crops and flips its own rows.
+
+The gradient's scale: each rank differentiates its own share of the loss,
+so that the shares of the data ranks add up to `data` times the global
+loss, and the gradients are then averaged over the data ranks. A term of
+this rank's rows (the cross-entropy, the center loss: local means) is its
+share as it stands. A term every data rank computes in full from gathered
+rows (the triplet loss) is also its share as it stands: the gather's
+backward sums every rank's gradient into the rows' owner, so the data
+ranks' shares add up to `data` times the term. The global BatchNorm sums
+are differentiated the same way (their all_reduce's backward is an
+all_reduce). Over the model ranks every rank computes the same loss and
+differentiates it once: the head's input goes through f (identity, its
+gradient summed over the model ranks) and its output and L2 term through
+g (gathered or summed, this rank's part of the gradient passed through),
+so the backbone's gradient is the
+same on every model rank and the data average needs no model reduction.
+The average is one all_reduce of all gradients flattened together, after
+the backward: DistributedDataParallel's hooks would reduce buckets during
+the backward, interleaved with the collectives the backward itself makes
+(the BatchNorm sums, the gathers), and one reduction after it keeps a
+single order of collectives on every rank, with or without remat.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import itertools
 import time
@@ -46,7 +87,14 @@ from facenet_tpu_torch.logging import logger
 from facenet_tpu_torch.models import inception_resnet_v1 as irv1
 from facenet_tpu_torch.ops import losses as losses_mod
 from facenet_tpu_torch.ops.lr_schedules import schedule_from_config
-from facenet_tpu_torch.ops.preprocessing import random_augment
+from facenet_tpu_torch.ops.preprocessing import augment_draws, augment_with
+from facenet_tpu_torch.parallel import launch
+from facenet_tpu_torch.parallel.mesh import (batch_rows, copy_to_model,
+                                             create_mesh, gather_columns,
+                                             gather_rows,
+                                             gather_values, group_size,
+                                             reduce_from_model, reduce_values,
+                                             split_part)
 from facenet_tpu_torch.utils import profiling
 
 
@@ -83,43 +131,158 @@ def create_backbone(model_cfg=None, image_cfg=None):
 class SoftmaxClassifier(nn.Module):
     """Backbone + identity-logits head: the unnormalized bottleneck into a
     Dense layer with bias (glorot-uniform kernel, zero bias), computed in
-    the step's dtype, logits returned in float32."""
+    the step's dtype, logits returned in float32.
 
-    def __init__(self, backbone, nrof_classes):
+    On a grid with ``mesh.model > 1`` this rank's head holds the
+    model_index-th of `model` equal parts of the kernel's columns and of
+    the bias, and returns those columns' logits; its input goes through
+    `copy_to_model`.
+
+    :raises ValueError: when C does not split evenly over the model ranks
+        (the JAX package's device_put refuses such a head; it is never
+        padded)
+    """
+
+    def __init__(self, backbone, nrof_classes, mesh=None):
         super().__init__()
         self.backbone = backbone
+        self.nrof_classes = int(nrof_classes)
+        parts = mesh.model if mesh is not None else 1
+        if self.nrof_classes % parts:
+            raise ValueError(f'{self.nrof_classes} classes do not split over '
+                             f'{parts} model shards')
+        self.parts = parts
+        self.part = mesh.model_index if parts > 1 else 0
+        self.model_group = mesh.model_group if parts > 1 else None
         self.logits = irv1.Dense(int(backbone.cfg.output.size),
-                                 int(nrof_classes), bias=True)
+                                 self.nrof_classes // parts, bias=True)
+
+    @property
+    def sharded(self):
+        return self.parts > 1
 
     def forward(self, images, train=False, dtype=torch.bfloat16):
-        """-> (logits [B, C] float32, prelogits [B, D] float32)."""
+        """-> (logits [B, C / model] float32, prelogits [B, D] float32)."""
         prelogits = self.backbone(images, train=train, normalize=False,
                                   dtype=dtype)
         return self.head(prelogits, dtype), prelogits
 
     def head(self, prelogits, dtype=torch.bfloat16):
-        return self.logits(prelogits.to(dtype)).float()
+        x = copy_to_model(prelogits.to(dtype), self.model_group)
+        return self.logits(x).float()
 
     def init_variables(self, seed=0):
-        """A fresh flax-layout tree: ``{'params': {'backbone', 'logits'},
-        'batch_stats': {'backbone'}}`` drawn from numpy's RandomState."""
+        """A fresh flax-layout tree of the whole model, the whole head
+        included: ``{'params': {'backbone', 'logits'}, 'batch_stats':
+        {'backbone'}}`` drawn from numpy's RandomState."""
         rng = np.random.RandomState(seed)
         params, stats = self.backbone.flax_variables(rng)
-        head, _ = self.logits.flax_variables(rng)
+        dim = int(self.backbone.cfg.output.size)
+        head = {'kernel': irv1.glorot_uniform(rng, (dim, self.nrof_classes)),
+                'bias': np.zeros((self.nrof_classes,), np.float32)}
         return {'params': {'backbone': params, 'logits': head},
                 'batch_stats': {'backbone': stats}}
 
     def from_flax_variables(self, variables):
+        """Load a flax tree; a whole head is cut to this rank's columns."""
         self.backbone.load_flax(variables['params']['backbone'],
                                 variables['batch_stats']['backbone'])
-        self.logits.load_flax(variables['params']['logits'])
+        head = variables['params']['logits']
+        if self.sharded and np.shape(head['kernel'])[1] == self.nrof_classes:
+            head = {'kernel': np.split(np.asarray(head['kernel']), self.parts,
+                                       axis=1)[self.part],
+                    'bias': np.split(np.asarray(head['bias']),
+                                     self.parts)[self.part]}
+        self.logits.load_flax(head)
         return self
 
     def to_flax_variables(self):
+        """The weights as a flax tree; the head is this rank's columns."""
         params, stats = self.backbone.dump_flax()
         head, _ = self.logits.dump_flax()
         return {'params': {'backbone': params, 'logits': head},
                 'batch_stats': {'backbone': stats}}
+
+
+HEAD = ('logits.weight', 'logits.bias')     # split over 'model' by row
+
+
+def full_state_dict(state):
+    """A copy of everything of `state` as one process holds it: the
+    model's and Adam's state_dicts with the head and its moments gathered
+    whole over the model ranks (a collective: every rank of the grid calls
+    it), the centers, the generator's state and the step. This is a
+    checkpoint's content, and what `load_full_state_dict` loads on any
+    grid."""
+    model = state.model
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    adam = state.optimizer.state_dict()
+    adam = {'state': {i: {k: v.clone() if isinstance(v, torch.Tensor) else v
+                          for k, v in moments.items()}
+                      for i, moments in adam['state'].items()},
+            'param_groups': copy.deepcopy(adam['param_groups'])}
+    if model.sharded:
+        for name, index in _head_indices(model):
+            weights[name] = gather_values(weights[name].contiguous(),
+                                          model.model_group)
+            moments = adam['state'].get(index, {})
+            for key in ('exp_avg', 'exp_avg_sq'):
+                if key in moments:
+                    moments[key] = gather_values(moments[key].contiguous(),
+                                                 model.model_group)
+    centers = None if state.centers is None else state.centers.clone()
+    return {'step': int(state.step), 'model': weights, 'optimizer': adam,
+            'centers': centers, 'generator': state.generator.get_state()}
+
+
+def load_full_state_dict(state, saved):
+    """Load `full_state_dict`'s content, written on any grid, into `state`
+    of any grid, in place: the head and its moments are cut to this
+    rank's columns."""
+    model = state.model
+    weights = dict(saved['model'])
+    adam = {'state': {i: dict(v) for i, v in saved['optimizer']
+                      ['state'].items()},
+            'param_groups': saved['optimizer']['param_groups']}
+    if model.sharded:
+        def cut(x):
+            return split_part(x, 0, model.part, model.parts).clone()
+        for name, index in _head_indices(model):
+            weights[name] = cut(weights[name])
+            moments = adam['state'].get(index, {})
+            for key in ('exp_avg', 'exp_avg_sq'):
+                if key in moments:
+                    moments[key] = cut(moments[key])
+    model.load_state_dict(weights)
+    state.optimizer.load_state_dict(adam)
+    device = next(model.parameters()).device
+    centers = saved['centers']
+    state.centers = None if centers is None else centers.to(device)
+    state.generator.set_state(saved['generator'].cpu())
+    state.step = int(saved['step'])
+    return state
+
+
+def _head_indices(model):
+    """(name, index among the optimizer's parameters) of the head's."""
+    names = [name for name, _ in model.named_parameters()]
+    return [(name, names.index(name)) for name in HEAD]
+
+
+def average_gradients(parameters, group):
+    """Every gradient averaged over the group's ranks, in one all_reduce of
+    all of them flattened together."""
+    n = group_size(group)
+    grads = [p.grad for p in parameters if p.grad is not None]
+    if n == 1 or not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    torch.distributed.all_reduce(flat, group=group)
+    flat /= n
+    start = 0
+    for g in grads:
+        g.copy_(flat[start:start + g.numel()].view_as(g))
+        start += g.numel()
 
 
 @dataclasses.dataclass
@@ -149,14 +312,18 @@ def running_stats_frozen(module):
 
 
 def make_train_step(schedule, loss_cfg, augment_cfg=None, image_size=160,
-                    remat=False, frozen_bn=False, dtype=torch.bfloat16):
+                    remat=False, frozen_bn=False, dtype=torch.bfloat16,
+                    mesh=None):
     """step(state, images, labels) -> (state, metrics), moving `state`.
 
-    :param images: [B, H, W, 3] uint8 tensor on the model's device
+    :param images: [B, H, W, 3] uint8 tensor on the model's device: this
+        data rank's rows of the global batch on a grid
     :param labels: [B] int tensor on the same device
+    :param mesh: the grid (see the module docstring); None is one device
     :return: metrics, 0-d float32 tensors left on the device: loss,
         cross_entropy, regularization, accuracy, and center_loss /
-        triplet_loss when those are on
+        triplet_loss when those are on; the global batch's, the same on
+        every rank
     """
     center_factor = float(loss_cfg.center_factor or 0.0)
     center_alfa = float(loss_cfg.center_alfa or 0.95)
@@ -167,6 +334,9 @@ def make_train_step(schedule, loss_cfg, augment_cfg=None, image_size=160,
     random_crop = bool(augment_cfg.random_crop) if augment_cfg else False
     random_flip = bool(augment_cfg.random_flip) if augment_cfg else False
     train = not frozen_bn
+    data_group = mesh.data_group if mesh is not None else None
+    n_data = group_size(data_group)
+    data_index = mesh.data_index if n_data > 1 else 0
 
     def forward(model, images):
         if not remat:
@@ -182,23 +352,39 @@ def make_train_step(schedule, loss_cfg, augment_cfg=None, image_size=160,
 
     def train_step(state, images, labels):
         if random_crop or random_flip:
-            images = random_augment(state.generator, images,
-                                    random_crop=random_crop,
-                                    random_flip=random_flip,
-                                    crop_size=image_size)
+            # the draws of the global batch, this rank's rows of them
+            b, h, w = images.shape[:3]
+            draws = augment_draws(state.generator, b * n_data, h, w,
+                                  random_crop=random_crop,
+                                  random_flip=random_flip,
+                                  crop_size=image_size)
+            lo = data_index * b
+            images = augment_with(
+                images, *(None if d is None else d[lo:lo + b]
+                          for d in draws), crop_size=image_size)
         labels = labels.long()
         model = state.model
 
         logits, prelogits = forward(model, images)
+        if model.sharded:
+            # the whole rows of logits, so that the loss and the argmax
+            # are log_softmax's and argmax's own arithmetic on them
+            group = model.model_group
+            logits = gather_columns(logits, group)
+            reg = irv1.l2_regularization(model.backbone) + reduce_from_model(
+                irv1.WEIGHT_DECAY * model.logits.weight.float().square()
+                .sum(), group)
+        else:
+            reg = irv1.l2_regularization(model)
         ce = losses_mod.softmax_cross_entropy_with_logits(logits, labels)
-        reg = irv1.l2_regularization(model)
         total = softmax_factor * ce + reg
         metrics = {'cross_entropy': ce, 'regularization': reg}
 
         new_centers = state.centers
         if state.centers is not None and center_factor > 0:
             c_loss, new_centers = losses_mod.center_loss(
-                prelogits, labels, state.centers, center_alfa)
+                prelogits, labels, state.centers, center_alfa,
+                group=data_group)
             total = total + center_factor * c_loss
             metrics['center_loss'] = c_loss
 
@@ -207,12 +393,14 @@ def make_train_step(schedule, loss_cfg, augment_cfg=None, image_size=160,
             emb = emb / torch.sqrt(torch.maximum(
                 emb.square().sum(dim=1, keepdim=True),
                 torch.full((), 1e-10, device=emb.device)))
-            t_loss = losses_mod.triplet_semihard_loss(emb, labels,
-                                                      triplet_margin)
+            t_loss = losses_mod.triplet_semihard_loss(
+                gather_rows(emb, data_group),
+                gather_values(labels, data_group), triplet_margin)
             total = total + triplet_factor * t_loss
             metrics['triplet_loss'] = t_loss
 
-        metrics['accuracy'] = (logits.argmax(dim=1) == labels).float().mean()
+        metrics['accuracy'] = (logits.argmax(dim=1)
+                               == labels).float().mean()
         metrics['loss'] = total
 
         lr = schedule(state.step)
@@ -220,10 +408,16 @@ def make_train_step(schedule, loss_cfg, augment_cfg=None, image_size=160,
             group['lr'] = lr
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        average_gradients(model.parameters(), data_group)
         state.optimizer.step()
 
         state.centers = new_centers
         state.step += 1
+        if n_data > 1:
+            keys = sorted(metrics)
+            means = reduce_values(torch.stack([metrics[k] for k in keys]),
+                                  data_group) / n_data
+            return state, dict(zip(keys, means.unbind()))
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return train_step
@@ -237,16 +431,27 @@ class SoftmaxTrainer:
     :param nrof_classes: width of the logits head
     :param model_cfg: the ``model:`` section or a bare topology dict
         (default ``cfg.model``)
-    :param device: 'cuda' (default; raises without a GPU) or 'cpu'
+    :param device: 'cuda' (default; raises without a GPU) or 'cpu'; the
+        mesh's device when a mesh is given
     :param dtype: compute dtype, bfloat16 (default), float32 or float64
         (float64 weights too)
+    :param mesh: the (data, model) grid (`parallel.mesh.create_mesh`);
+        default: the one ``cfg.mesh`` describes over the process group
+        (data null = every rank / model), a single device without a group
     """
 
     def __init__(self, cfg, nrof_classes, model_cfg=None, device=None,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, mesh=None):
         self.cfg = cfg
         self.nrof_classes = int(nrof_classes)
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+            mesh = create_mesh(data=cfg.mesh.data, model=cfg.mesh.model,
+                               device=self.device)
+        else:
+            self.device = mesh.device if device is None \
+                else resolve_device(device)
+        self.mesh = mesh
         self.dtype = dtype
         profiling.apply_debug_config(cfg.debug)
 
@@ -263,11 +468,13 @@ class SoftmaxTrainer:
         zero centers when ``loss.center_factor > 0``, Adam with no
         moments yet, the generator seeded with `seed`."""
         backbone = create_backbone(self.model_cfg, self.cfg.image)
-        model = SoftmaxClassifier(backbone, self.nrof_classes)
+        model = SoftmaxClassifier(backbone, self.nrof_classes,
+                                  mesh=self.mesh)
         model.from_flax_variables(model.init_variables(seed))
         master = (torch.float64 if self.dtype == torch.float64
                   else torch.float32)
         model.to(self.device, master)
+        irv1.set_batch_group(backbone, self.mesh.data_group)
 
         center_factor = float(self.cfg.loss.center_factor or 0.0)
         centers = (torch.zeros(self.nrof_classes,
@@ -280,6 +487,18 @@ class SoftmaxTrainer:
         generator = torch.Generator().manual_seed(int(seed))
         return TrainState(step=0, model=model, optimizer=optimizer,
                           centers=centers, generator=generator)
+
+    def shard_state(self, source, seed=0):
+        """A state of this trainer's grid from `source`: a single-process
+        `TrainState` (weights, statistics, Adam, centers, generator and
+        step, the head and its moments cut to this rank's columns) or a
+        flax variables tree (JAX's carried parameters; Adam and the
+        centers start afresh). `full_state_dict` is its inverse."""
+        state = self.init_state(seed)
+        if isinstance(source, TrainState):
+            return load_full_state_dict(state, full_state_dict(source))
+        state.model.from_flax_variables(source)
+        return state
 
     def warm_start(self, state, variables):
         """Load a bundle's backbone variables ({'params', 'batch_stats'},
@@ -314,7 +533,7 @@ class SoftmaxTrainer:
                 self.schedule, self.cfg.loss, augment_cfg=self.cfg.image,
                 image_size=self.image_size,
                 remat=bool(self.cfg.train.remat), frozen_bn=frozen_bn,
-                dtype=self.dtype)
+                dtype=self.dtype, mesh=self.mesh)
         return self._step_fns[frozen_bn]
 
     @property
@@ -335,12 +554,24 @@ class SoftmaxTrainer:
         return (images.to(self.device, non_blocking=True),
                 labels.to(self.device, non_blocking=True))
 
+    def placed_rows(self, images, labels):
+        """This data rank's contiguous rows of a global host batch every
+        rank holds, placed (`placed`); the whole batch on one device.
+
+        :raises ValueError: when the batch does not split evenly over the
+            data ranks
+        """
+        return self.placed(batch_rows(self.mesh, images),
+                           batch_rows(self.mesh, labels))
+
     def _placed_batches(self, batches, prefetch):
-        """(size, images, labels) with up to `prefetch` batches' copies to
-        the device in flight ahead of the consumer."""
+        """(global size, images, labels) with up to `prefetch` batches'
+        copies to the device in flight ahead of the consumer; each batch
+        is this data rank's rows of a global batch."""
         queue = deque()
         for images, labels in batches:
-            queue.append((len(images), *self.placed(images, labels)))
+            queue.append((len(images) * self.mesh.data,
+                          *self.placed(images, labels)))
             if len(queue) >= max(int(prefetch), 1):
                 yield queue.popleft()
         while queue:
@@ -348,7 +579,9 @@ class SoftmaxTrainer:
 
     def train_epoch(self, state, batches, epoch, log_every=100,
                     frozen_bn=False):
-        """One epoch over an iterable of (images, labels) host batches.
+        """One epoch over an iterable of (images, labels) host batches: on
+        a grid, this data rank's rows of each global batch (a loader given
+        ``rows=``, `parallel.mesh.batch_rows`).
 
         Exactly ``train.epoch.size`` batches are drawn: the draw is bounded
         before the prefetch queue, so a pipeline shared across epochs (and
@@ -463,3 +696,92 @@ def step_on_devices(cfg, nrof_classes, images, labels, model_cfg=None,
         worst = max(worst, (np.abs(got - want).max() - atol)
                     / max(moved, 1e-30))
     return (first[0], second[0]), worst, largest
+
+
+def _state_leaves(state):
+    """(name, float64 array) of a state's whole weights, BatchNorm
+    statistics and centers, in sorted-name order (a collective on a
+    grid)."""
+    saved = full_state_dict(state)
+    leaves = dict(saved['model'])
+    if saved['centers'] is not None:
+        leaves['centers'] = saved['centers']
+    return [(k, leaves[k].cpu().double().numpy()) for k in sorted(leaves)]
+
+
+def grid_step_check(device, cfg, nrof_classes, images, labels, grid,
+                    model_cfg=None, dtype='float64', atol=0.0):
+    """`step_on_grid`'s work on one rank of a process group already formed
+    (every rank of the world calls it): the grid's step, then on rank 0
+    the same step alone. Returns rank 0's result, None elsewhere.
+
+    :param cfg: the train config (a Config or its dict)
+    :param dtype: the compute dtype's name
+    """
+    dtype = getattr(torch, str(dtype).rsplit('.', 1)[-1])
+    cfg = Config(cfg) if not isinstance(cfg, Config) else cfg
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        mesh = create_mesh(*grid, device=device)
+        result = None
+        if mesh.in_grid:
+            trainer = SoftmaxTrainer(cfg, nrof_classes, model_cfg=model_cfg,
+                                     dtype=dtype, mesh=mesh)
+            state = trainer.init_state(seed=0)
+            state, metrics = trainer.step_fn(
+                state, *trainer.placed_rows(images, labels))
+            got = _state_leaves(state)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            del trainer, state
+        if mesh.rank == 0:
+            # the same step on one rank of the same world: a 1 x 1 grid
+            single = SoftmaxTrainer(cfg, nrof_classes, model_cfg=model_cfg,
+                                    dtype=dtype,
+                                    mesh=create_mesh(1, 1, device=device))
+            state = single.init_state(seed=0)
+            start = _state_leaves(state)
+            state, want_metrics = single.step_fn(
+                state, *single.placed(images, labels))
+            want = _state_leaves(state)
+            worst, largest = 0.0, 0.0
+            for (name, a), (_, b), (_, before) in zip(got, want, start):
+                moved = np.abs(b - before).max()
+                largest = max(largest, moved)
+                worst = max(worst, (np.abs(a - b).max() - atol)
+                            / max(moved, 1e-30))
+            result = ((metrics, {k: float(v) for k, v in
+                                 want_metrics.items()}), worst, largest)
+        torch.distributed.barrier()
+        return result
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def step_on_grid(cfg, nrof_classes, images, labels, grid, model_cfg=None,
+                 dtype=torch.float64, atol=0.0, backend='gloo',
+                 device='cuda', timeout=900, threads=None):
+    """One train step of ``init_state(seed=0)`` on a (data, model) grid of
+    spawned ranks (`parallel.launch.spawn`) and the same step on one rank
+    of that world (rank 0 alone, a 1 x 1 grid), cuDNN and cuBLAS kept off
+    TF32: the check that the grid's step is the single device's.
+
+    :param images, labels: the global batch (numpy), every rank's
+    :param grid: (data, model)
+    :param backend: 'gloo' lets several ranks share one card
+    :return: ((metrics on the grid, on one rank) as floats, worst,
+        largest) as `step_on_devices` defines them, the grid's head
+        gathered whole
+    """
+    data, model = grid
+    model_cfg = model_cfg.as_dict if isinstance(model_cfg, Config) \
+        else model_cfg
+    return launch.spawn(
+        grid_step_check, data * model, backend=backend, device=device,
+        args=(cfg.as_dict, int(nrof_classes), np.asarray(images),
+              np.asarray(labels), (data, model), model_cfg, str(dtype),
+              float(atol)),
+        timeout=timeout, threads=threads)[0]

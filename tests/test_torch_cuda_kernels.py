@@ -619,3 +619,29 @@ def test_train_step_on_the_card_matches_the_cpu(loss, dtype):
         np.testing.assert_allclose(card[key], cpu[key], rtol=rtol,
                                    atol=atol, err_msg=key)
     assert worst <= bound, worst
+
+
+@pytest.mark.cuda
+def test_grid_step_on_the_card_equals_one_rank():
+    """chip_smoke phase 32's (data=2, model=1) check at TINY width, through
+    the same function: two gloo ranks share the card, one float64 step of
+    softmax + center at global batch 8 with TF32 off against the same step
+    on one rank; every leaf within 1e-5 of its update + 1e-12, the metrics
+    at rtol 1e-5."""
+    from facenet_tpu_torch.config import Config
+    from facenet_tpu_torch.train.softmax import step_on_grid
+
+    _gpu()
+    cfg = Config({'image': {'size': 160},
+                  'train': {'epoch': {'size': 1},
+                            'learning_rate': {'value': 1e-3}},
+                  'loss': TRAIN_LOSSES['softmax + center']})
+    (grid, one), worst, _ = step_on_grid(
+        cfg, 4, *_train_batch(8, 4), (2, 1), model_cfg=TINY,
+        dtype=torch.float64, atol=1e-12, backend='gloo', device='cuda',
+        timeout=600)
+    assert sorted(grid) == sorted(one)
+    for key in one:
+        np.testing.assert_allclose(grid[key], one[key], rtol=1e-5,
+                                   atol=1e-12, err_msg=key)
+    assert worst <= 1e-5, worst

@@ -61,7 +61,9 @@ def test_port_imports_no_jax_and_no_facenet_tpu():
                  'models.inception_resnet_v2', 'models.irv2_fast',
                  'tools.validate_int8', 'ops.losses', 'ops.lr_schedules',
                  'train.softmax', 'train.checkpoint', 'callbacks',
-                 'apps.train_softmax'):
+                 'apps.train_softmax', 'parallel.mesh',
+                 'parallel.sharded_eval', 'parallel.launch',
+                 'apps.train_softmax_distributed'):
         assert f'facenet_tpu_torch.{name}' in result['names'], name
 
 
