@@ -224,7 +224,31 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      and the counts of B1 on one rank; the ms of both paths beside B1's;
  34. evaluate_embeddings(mesh=) on the two ranks: 1,000 images in batches
      of 111 through the full-width IRv1 in float32 (no TF32): the rows
-     in order, at cosine >= 0.99999 to one rank's.
+     in order, at cosine >= 0.99999 to one rank's;
+ 35. the Faster-RCNN through FaceDetector(detector='frcnnv3') with the
+     bundled weights at 480x640 on 64 synthetic scenes in batches of 16
+     (proposals 256, outputs 32), every launch count 0; 4 scenes on the
+     card and on the CPU matched by IoU: boxes within 1.5 px, scores
+     within 0.02; ms a batch as issued, device busy, crop_and_resize's
+     share of it, a profiler top 10;
+ 36. the bundled Faster-RCNN's quality gate on the card (32 held-out
+     256x256 scenes, seed 555): recall >= 0.97, precision >= 0.86, mean
+     IoU >= 0.5;
+ 37. FasterRCNNTrainer: 20 bf16 steps at batch 8 of 480x640 scenes (1-3
+     faces): finite losses, rpn_cls falling; ms a step as issued, device
+     busy, launches a step, peak memory; one float32 step (TF32 off) card
+     vs CPU from the trained state: losses at rtol 1e-4, Adam's first
+     moment within 1e-3 of each leaf's largest entry;
+ 38. MTCNNTrainer for P-, R- and O-Net: 20 bf16 steps each at batch 256 of
+     generate_training_crops samples: finite losses, cls_loss falling; ms
+     a step; one float32 step card vs CPU per net under phase 37's bound;
+ 39. ClassifierTrainer at 500 identities x 50 x 512-d (P = 500, K = 5),
+     2 epochs x 250 steps for both classifiers: loss falling; the
+     ConfusionMatrix on the card and on the CPU within 1e-6;
+ 40. the trained trees of 37 and 38 through FaceDetector(params=...) on
+     the card, one batch each: finite outputs.
+     No hand-written kernel lies on the paths of 35-40: every launch count
+     stays 0 there.
 
 The GPU machine may lack PIL, yaml, h5py, sklearn and click, so nothing
 here imports them: the model bundle is built in memory, images and scenes
@@ -2461,6 +2485,296 @@ def ids_for_pk(labels):
     return values[counts >= 2][:4]
 
 
+def busy_line(fn, calls):
+    """(device busy ms a call, wall ms a call, kernel launches a call) from
+    torch.profiler over `calls` calls of fn()."""
+    from facenet_tpu_torch.utils.timing import device_busy
+    busy, wall, rows = device_busy(fn, calls)
+    return busy, wall, sum(e.count for e in rows) / calls
+
+
+def detection_scenes(seed, n, shape, min_face=40, max_face=200):
+    """(uint8 [n, H, W, 3] scenes, their boxes, their landmarks), 1-3
+    faces a scene."""
+    from facenet_tpu_torch.utils.synthetic import render_scene
+    scene_rng = np.random.RandomState(seed)
+    scenes = [render_scene(scene_rng, shape=shape,
+                           n_faces=scene_rng.randint(1, 4),
+                           min_face=min_face, max_face=max_face)
+              for _ in range(n)]
+    return (np.stack([s[0] for s in scenes]), [s[1] for s in scenes],
+            [s[2] for s in scenes])
+
+
+def crop_batches(images, boxes, landmarks, net, batch, n, seed):
+    """n batches of `batch` training crops for one MTCNN net, sampled from
+    the scenes by `generate_training_crops`, every sample type present."""
+    from facenet_tpu_torch.train import mtcnn
+    rng = np.random.RandomState(seed)
+    parts = []
+    i = 0
+    while sum(len(p[0]) for p in parts) < n * batch:
+        j = i % len(images)
+        parts.append(mtcnn.generate_training_crops(
+            images[j], boxes[j], mtcnn.INPUT_SIZE[net], rng,
+            gt_landmarks=landmarks[j]))
+        i += 1
+    pool = [np.concatenate([p[k] for p in parts]) for k in range(5)]
+    order = rng.permutation(len(pool[0]))[:n * batch]
+    pool = [a[order] for a in pool]
+    return [tuple(a[j * batch:(j + 1) * batch] for a in pool)
+            for j in range(n)]
+
+
+def slice11_phases(rng, context):
+    """Phases 35-40 (see the module docstring): Faster-RCNN serving, its
+    quality gate and training, MTCNN training, the pair classifiers, and
+    the trained trees served; no hand-written kernel runs on these paths,
+    so every launch count stays 0."""
+    import torch
+
+    from facenet_tpu_torch.config import Config
+    from facenet_tpu_torch.dataset import equal_batches_input_pipeline
+    from facenet_tpu_torch.detectors import evaluation, pretrained
+    from facenet_tpu_torch.detectors.face_detector import FaceDetector
+    from facenet_tpu_torch.detectors.frcnn import detector as frcnn
+    from facenet_tpu_torch.ops.image_ops import crop_and_resize
+    from facenet_tpu_torch.train import classifier, mtcnn
+    from facenet_tpu_torch.utils.timing import cuda_ms, device_busy
+    from facenet_tpu_torch.utils.timing import spread as _spread
+
+    smi = context['smi']
+    started = time.monotonic()
+    bundled = pretrained.load_bundled('frcnnv3')
+
+    # 35. FRCNN serving through FaceDetector, card and CPU
+    print(f'[35] FaceDetector(detector="frcnnv3"), bundled weights, {SCENE}, '
+          '64 synthetic scenes in batches of 16, proposals 256, outputs 32 '
+          '(cuda)')
+    images, truth, _ = detection_scenes(35, 64, SCENE)
+    fd = FaceDetector(detector='frcnnv3', image_shape=SCENE, device='cuda')
+    det = fd.backend_for(SCENE)
+    fd.detect_images(list(images[:16]))                    # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.monotonic()
+    found = []
+    for i in range(0, 64, 16):
+        found += fd.detect_images(list(images[i:i + 16]))
+    path_s = time.monotonic() - t0
+    counts = read_launches()
+    require(counts == only(), f'the FRCNN path launched kernels: {counts}')
+    n_found = sum(len(f) for f in found)
+    matched = sum(evaluation.match_detections(
+        gt, np.array([[b.left, b.top, b.left + b.width, b.top + b.height]
+                      for b in f], np.float32).reshape(-1, 4))[0]
+        for gt, f in zip(truth, found))
+    print(f'  {n_found} detections, {matched} of '
+          f'{sum(len(t) for t in truth)} ground-truth faces matched at IoU '
+          f'0.5; {path_s:.2f} s wall for the 64 (letterbox included); kernel '
+          f'launches {counts}')
+    require(matched >= 0.75 * sum(len(t) for t in truth),
+            'the FRCNN found too few faces')
+    card_out = det.detect_batch(images[:4])
+    cpu_det = frcnn.FasterRCNN(image_shape=SCENE, params=bundled,
+                               device='cpu')
+    cpu_out = cpu_det.detect_batch(images[:4])
+    gap = evaluation.compare_outputs(card_out, cpu_out)
+    print(f'  card vs CPU, 4 scenes: {gap}')
+    require(gap['unmatched'] == 0 and gap['n_b'] > 0
+            and gap['box_px'] <= 1.5 and gap['score'] <= 0.02,
+            f'FRCNN card != CPU: {gap}')
+    batch = det.to_device(images[:16])
+    ms, windows = cuda_ms(lambda: det.detect_batch_async(batch), reps=5)
+    busy, wall, launches = busy_line(lambda: det.detect_batch_async(batch), 3)
+    with torch.inference_mode():
+        fmap, boxes, _, _ = det._propose(batch)
+    crop_busy, _, _ = device_busy(
+        lambda: crop_and_resize(fmap, boxes / frcnn.STRIDE, det.roi_size), 3)
+    print(f'  on {smi}: {ms:.3f} ms a batch of 16 as issued (windows '
+          f'{_spread(windows)}) = {16e3 / ms:.1f} scenes/s; device busy '
+          f'{busy:.3f} ms a batch ({busy / wall:.3f} of {wall:.3f} ms wall, '
+          f'{launches:.0f} launches); crop_and_resize {crop_busy:.3f} ms '
+          f'busy = {crop_busy / busy:.3f} of it')
+    device_breakdown(lambda: det.detect_batch_async(batch), 10)
+
+    # 36. the bundled FRCNN's quality gate on the card
+    print('[36] bundled FRCNN quality gate on the card: 32 held-out 256x256 '
+          'scenes (seed 555)')
+    gate_rng = np.random.RandomState(555)
+    from facenet_tpu_torch.utils.synthetic import render_scene
+    gate = [render_scene(gate_rng, shape=(256, 256),
+                         n_faces=gate_rng.randint(1, 4), min_face=32,
+                         max_face=160) for _ in range(32)]
+    m = evaluation.evaluate_detector(
+        FaceDetector(detector='frcnnv3', image_shape=(256, 256),
+                     device='cuda'), [s[0] for s in gate],
+        [s[1] for s in gate], iou_threshold=0.5, batch_size=16)
+    print(f'  recall {m["recall"]:.4f} precision {m["precision"]:.4f} mean '
+          f'IoU {m["mean_iou"]:.4f} ({m["n_matched"]}/{m["n_gt"]} matched, '
+          f'{m["n_pred"]} predicted)')
+    require(m['recall'] >= 0.97 and m['precision'] >= 0.86
+            and m['mean_iou'] >= 0.5, f'FRCNN quality gate failed: {m}')
+
+    # 37. FRCNN training
+    print(f'[37] FasterRCNNTrainer: 20 bf16 steps at batch 8 of {SCENE} '
+          'scenes (1-3 faces), Adam 1e-3 from init_params(seed=0) (cuda)')
+    t_images, t_boxes, _ = detection_scenes(37, 32, SCENE)
+    train_det = frcnn.FasterRCNN(image_shape=SCENE, device='cuda')
+    trainer = frcnn.FasterRCNNTrainer(train_det, learning_rate=1e-3)
+    state = trainer.init_state(seed=0)
+    batches = [(t_images[i:i + 8], t_boxes[i:i + 8]) for i in range(0, 32, 8)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    history = []
+    t0 = time.monotonic()
+    for i in range(20):
+        state, metrics = trainer.train_step(state, *batches[i % 4])
+        history.append(metrics)
+    history = [{k: float(v) for k, v in h.items()} for h in history]
+    run_s = time.monotonic() - t0
+    counts = read_launches()
+    require(counts == only(), f'FRCNN training launched kernels: {counts}')
+    rpn = [h['rpn_cls'] for h in history]
+    require(all(np.isfinite(list(h.values())).all() for h in history)
+            and np.mean(rpn[-5:]) < np.mean(rpn[:5]),
+            f'FRCNN losses not finite or rpn_cls not falling: {rpn}')
+    print(f'  rpn_cls {" ".join(f"{v:.4f}" for v in rpn)}')
+    print(f'  last step {history[-1]}; 20 steps in {run_s:.2f} s wall')
+    peak = torch.cuda.max_memory_allocated()
+
+    def frcnn_step():
+        trainer.train_step(state, *batches[0])
+
+    ms, windows = cuda_ms(frcnn_step, reps=5)
+    busy, wall, launches = busy_line(frcnn_step, 3)
+    print(f'  on {smi}: {ms:.3f} ms a step as issued (windows '
+          f'{_spread(windows)}) = {8e3 / ms:.1f} img/s; device busy '
+          f'{busy:.3f} ms a step ({busy / wall:.3f} of {wall:.3f} ms wall), '
+          f'{launches:.0f} launches a step; max_memory_allocated '
+          f'{peak / 2 ** 30:.2f} GiB')
+    frcnn_params = trainer.params_of(state)
+    t0 = time.monotonic()
+    (card, cpu), worst = frcnn.step_on_devices(
+        frcnn_params, t_images[:2], t_boxes[:2])
+    rel = max(abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30) for k in cpu)
+    print(f'  one float32 step (TF32 off) at batch 2, card vs CPU from the '
+          f'trained state: losses rel {rel:.2e}, Adam first moment '
+          f'{worst:.2e} of a leaf ({time.monotonic() - t0:.1f} s)')
+    require(rel <= 1e-4 and worst <= 1e-3,
+            f'FRCNN step card != CPU: {rel} {worst}')
+
+    # 38. MTCNN training
+    print('[38] MTCNNTrainer P-, R-, O-Net: 20 bf16 steps each at batch 256 '
+          '(4 batches cycled) of generate_training_crops samples of 256x256 '
+          'scenes with landmarks (cuda)')
+    s_images, s_boxes, s_lmks = detection_scenes(38, 48, (256, 256),
+                                                 min_face=40, max_face=160)
+    mtcnn_params = {}
+    for k, net in enumerate(('pnet', 'rnet', 'onet')):
+        crops = crop_batches(s_images, s_boxes, s_lmks, net, 256, 4, k)
+        trainer = mtcnn.MTCNNTrainer(net, device='cuda')
+        state = trainer.init_state(seed=0)
+        reset_launches()
+        history = []
+        for i in range(20):
+            state, metrics = trainer.train_step(state, *crops[i % 4])
+            history.append(metrics)
+        history = [{k: float(v) for k, v in h.items()} for h in history]
+        counts = read_launches()
+        require(counts == only(), f'{net} training launched kernels: {counts}')
+        cls = [h['cls_loss'] for h in history]
+        require(all(np.isfinite(list(h.values())).all() for h in history)
+                and np.mean(cls[-5:]) < np.mean(cls[:5]),
+                f'{net} losses not finite or cls_loss not falling: {cls}')
+        ms, windows = cuda_ms(lambda: trainer.train_step(state, *crops[0]),
+                              reps=5)
+        busy, wall, launches = busy_line(
+            lambda: trainer.train_step(state, *crops[0]), 3)
+        mtcnn_params[net] = trainer.params_of(state)
+        (card, cpu), worst = mtcnn.step_on_devices(net, mtcnn_params[net],
+                                                   crops[1])
+        rel = max(abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30)
+                  for k in cpu)
+        print(f'  {net}: cls_loss {cls[0]:.4f} -> {cls[-1]:.4f} (means of 5: '
+              f'{np.mean(cls[:5]):.4f} -> {np.mean(cls[-5:]):.4f}); on {smi}: '
+              f'{ms:.3f} ms a step as issued (windows {_spread(windows)}), '
+              f'device busy {busy:.3f} ms ({launches:.0f} launches); float32 '
+              f'step card vs CPU: losses rel {rel:.2e}, first moment '
+              f'{worst:.2e} of a leaf')
+        require(rel <= 1e-4 and worst <= 1e-3,
+                f'{net} step card != CPU: {rel} {worst}')
+
+    # 39. the pair classifiers
+    print('[39] ClassifierTrainer: 500 identities x 50 embeddings x 512-d '
+          '(synthetic, clustered), P = 500, K = 5, 2 epochs x 250 steps, '
+          'both classifiers; ConfusionMatrix on the card and on the CPU')
+    emb, labels = clustered(rng, 500, 50, 512, 1.2)
+    scale = rng.uniform(0.6, 1.6, (emb.shape[0], 1)).astype(np.float32)
+    for normalized in (False, True):
+        data = emb if normalized else emb * scale
+        per_class = [data[labels == c] for c in np.unique(labels)]
+        cfg = Config({'nrof_classes_per_batch': None,
+                      'nrof_examples_per_class': 5,
+                      'train': {'epoch': {'max_nrof_epochs': 2, 'size': 250},
+                                'learning_rate_schedule': {
+                                    'initial_value': 0.01,
+                                    'decay_rate': 0.1}}})
+        batches = equal_batches_input_pipeline(per_class, cfg, seed=0)
+        trainer = classifier.ClassifierTrainer(cfg, normalized=normalized,
+                                               device='cuda')
+        reset_launches()
+        t0 = time.monotonic()
+        model = trainer.train(batches, nrof_epochs=2, epoch_size=250,
+                              p=int(cfg.nrof_classes_per_batch), k=5)
+        losses = [float(v) for v in trainer.losses]
+        train_s = time.monotonic() - t0
+        counts = read_launches()
+        require(counts == only(), f'classifier launched kernels: {counts}')
+        require(np.isfinite(losses).all()
+                and np.mean(losses[-25:]) < np.mean(losses[:25]),
+                f'classifier loss not falling: {losses[:3]} {losses[-3:]}')
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        on_card = classifier.ConfusionMatrix(per_class, model)
+        card_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        on_cpu = classifier.ConfusionMatrix(
+            per_class, type(model).from_variables(model.variables,
+                                                  device='cpu'))
+        cpu_s = time.monotonic() - t0
+        worst = max(abs(getattr(on_card, a) - getattr(on_cpu, a))
+                    for a in ('accuracy', 'precision', 'tp_rate', 'tn_rate'))
+        print(f'  {type(model).__name__}: loss {np.mean(losses[:25]):.4f} -> '
+              f'{np.mean(losses[-25:]):.4f} (means of 25); {train_s / 500 * 1e3:.3f} '
+              f'ms a step wall over 500 steps on {smi} (batches drawn on the '
+              f'host included); variables {model.variables_dict()}; '
+              f'confusion: accuracy {on_card.accuracy:.6f}, card '
+              f'{card_s:.3f} s wall, CPU {cpu_s:.3f} s, max |card - CPU| '
+              f'{worst:.2e}')
+        require(worst <= 1e-6, f'ConfusionMatrix card != CPU: {worst}')
+
+    # 40. the trained trees served
+    print('[40] the trained trees of phases 37 and 38 through '
+          'FaceDetector(params=...) on the card (the MTCNN with its '
+          '"flax" P-Net, so no kernel runs), one batch of 16 each')
+    reset_launches()
+    for name, params, kwargs in (('frcnnv3', frcnn_params, {}),
+                                 ('mtcnn', mtcnn_params,
+                                  {'pnet_impl': 'flax'})):
+        served = FaceDetector(detector=name, image_shape=SCENE, params=params,
+                              device='cuda', **kwargs)
+        out = served.backend_for(SCENE).detect_batch(images[:16])
+        require(all(np.isfinite(out[k]).all() for k in ('boxes', 'scores')),
+                f'{name}: non-finite outputs from the trained tree')
+        print(f'  {name}: {int(out["valid"].sum())} valid boxes in 16 scenes, '
+              'finite')
+    counts = read_launches()
+    require(counts == only(), f'phase 40 launched kernels: {counts}')
+    print(f'phases 35-40: {time.monotonic() - started:.1f} s')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2683,6 +2997,7 @@ def main():
     slice8_phases(rng, context)
     slice9_phases(rng, context)
     slice10_phases(context)
+    slice11_phases(rng, context)
 
     print(f'total {time.monotonic() - started:.1f} s')
     print(json.dumps({'kernels': [pair_entry] + detection + slice3}))

@@ -351,3 +351,37 @@ def train_softmax_distributed(options, app_file_name=None, device=None):
     run_name = mesh.broadcast_object(subdir())
     cfg = train_softmax(options, app_file_name, run_name=run_name)
     return cfg, device
+
+
+def train_classifier(app_file_name, options):
+    """Config for the train_classifier app: the run directory
+    ``<classifier.path>/<timestamp>`` holding ``log.txt``, seeded RNGs,
+    provenance written."""
+    cfg = load_config(app_file_name, options)
+
+    cfg.classifier.path = Path(str(cfg.classifier.path)).expanduser() / subdir()
+    cfg.logdir = cfg.classifier.path
+    cfg.logfile = cfg.logdir / 'log.txt'
+
+    cfg.seed_key = set_seed(cfg.seed)
+    _write_provenance(cfg, cfg.logdir, app_file_name)
+    return cfg
+
+
+def train_detector(options, app_file_name=None):
+    """Config for the train_detector app: the run directory
+    ``<model.path>/<timestamp>`` with ``logs/`` inside, seeded RNGs,
+    provenance written."""
+    app_file_name = app_file_name or sys.argv[0]
+    cfg = load_config(app_file_name, options)
+
+    path = Path(str(cfg.model.path)).expanduser()
+    cfg.model.path = path / subdir()
+
+    cfg.logs = Config()
+    cfg.logs.dir = cfg.model.path / 'logs'
+    cfg.logs.file = cfg.model.path.stem + '.log'
+
+    cfg.seed_key = set_seed(cfg.seed)
+    _write_provenance(cfg, cfg.logs.dir, app_file_name)
+    return cfg

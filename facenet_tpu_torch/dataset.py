@@ -441,3 +441,46 @@ def pipeline_with_equal_batches(loader, classes, config, seed=None,
     return PKPipeline(loader, classes, config, seed=seed,
                       num_workers=num_workers, start_state=start_state,
                       rows=rows)
+
+
+def equal_batches_input_pipeline(embeddings, config, seed=None):
+    """Endless P x K batches over stored per-class embeddings.
+
+    ``config.nrof_classes_per_batch`` (P) defaults to every class and
+    ``config.nrof_examples_per_class`` (K) to a tenth of the mean class
+    size (at least 1); classes with fewer than K embeddings are left out
+    and P shrinks to the classes left. Both are written back to `config`.
+    The draws are ``random.Random(seed)``'s, in the JAX package's order, so
+    the batches are its batches.
+
+    :param embeddings: list of [n_c, D] arrays, one per class
+    :return: generator of [P * K, D] float32 batches
+    :raises ValueError: no class holds K embeddings
+    """
+    if not config.nrof_classes_per_batch:
+        config.nrof_classes_per_batch = len(embeddings)
+
+    if not config.nrof_examples_per_class:
+        config.nrof_examples_per_class = max(round(
+            0.1 * sum(len(e) for e in embeddings) / len(embeddings)), 1)
+
+    k = int(config.nrof_examples_per_class)
+    usable = [e for e in embeddings if len(e) >= k]
+    if not usable:
+        raise ValueError(
+            f'no class has >= {k} embeddings (largest: '
+            f'{max((len(e) for e in embeddings), default=0)})')
+    p = min(int(config.nrof_classes_per_batch), len(usable))
+    config.nrof_classes_per_batch = p
+
+    rnd = random.Random(seed)
+
+    def generator():
+        while True:
+            batch = []
+            for embs in rnd.sample(usable, p):
+                rows = rnd.sample(range(len(embs)), k)
+                batch.append(np.asarray(embs)[rows])
+            yield np.concatenate(batch).astype(np.float32)
+
+    return generator()

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ['iou_matrix', 'match_detections', 'evaluate_detector']
+__all__ = ['iou_matrix', 'match_detections', 'evaluate_detector',
+           'compare_outputs']
 
 
 def iou_matrix(a, b):
@@ -48,6 +49,39 @@ def match_detections(gt_boxes, pred_boxes, iou_threshold=0.5):
         matched += 1
         ious.append(float(iou[gi, pi]))
     return matched, ious
+
+
+def compare_outputs(a, b, iou_threshold=0.5):
+    """Two detectors' batch outputs ('boxes', 'scores', 'valid') on the
+    same images, matched one to one by IoU within each image (slots may
+    order differently where scores tie or round otherwise).
+
+    :returns: dict with the valid counts 'n_a' and 'n_b', 'unmatched' (the
+        valid boxes of either side left without a partner), 'box_px' (the
+        largest coordinate difference of a matched pair) and 'score' (the
+        largest score difference of a matched pair)
+    """
+    out = {'n_a': 0, 'n_b': 0, 'unmatched': 0, 'box_px': 0.0, 'score': 0.0}
+    for i in range(len(a['valid'])):
+        va, vb = np.flatnonzero(a['valid'][i]), np.flatnonzero(b['valid'][i])
+        out['n_a'] += len(va)
+        out['n_b'] += len(vb)
+        iou = iou_matrix(a['boxes'][i][va], b['boxes'][i][vb])
+        used = np.zeros(len(vb), bool)
+        matched = 0
+        for r in range(len(va)):
+            cand = np.where(used, -1.0, iou[r]) if len(vb) else iou[r]
+            if not len(vb) or cand.max() < iou_threshold:
+                continue
+            c = int(cand.argmax())
+            used[c] = True
+            matched += 1
+            out['box_px'] = max(out['box_px'], float(np.abs(
+                a['boxes'][i][va[r]] - b['boxes'][i][vb[c]]).max()))
+            out['score'] = max(out['score'], float(abs(
+                a['scores'][i][va[r]] - b['scores'][i][vb[c]])))
+        out['unmatched'] += len(va) + len(vb) - 2 * matched
+    return out
 
 
 def evaluate_detector(detector, images, gt_boxes_list, iou_threshold=0.5,

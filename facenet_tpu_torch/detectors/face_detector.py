@@ -1,8 +1,9 @@
 """Detection facade: a uniform `detect(image) -> [BoundingBox]` API.
 
 `FaceDetector` / `BoundingBox` / margin-crop `image_processing`, with the
-batched MTCNN cascade (detectors/mtcnn/) as the backend; 'pypimtcnn' is
-accepted as an alias. Single-image `detect` is kept for API compatibility;
+batched MTCNN cascade (detectors/mtcnn/; 'pypimtcnn' is accepted as an
+alias) or the batched Faster-RCNN (detectors/frcnn/, 'frcnnv3') as the
+backend. Single-image `detect` is kept for API compatibility;
 `detect_images` is the batched path. PIL is imported only where an image
 is decoded or cropped.
 """
@@ -87,19 +88,23 @@ class BoundingBox:
 class FaceDetector:
     """Facade selecting a detection backend.
 
-    Supported: 'mtcnn' (the batched cascade; 'pypimtcnn' is an alias).
-    'frcnnv3' is not ported yet.
+    Supported: 'mtcnn' (the batched cascade; 'pypimtcnn' is an alias) and
+    'frcnnv3' (the two-stage Faster-RCNN).
 
     :param image_shape: the (single) letterbox geometry
     :param image_shapes: optional list of (H, W) letterbox buckets sharing
         one weight set; each input routes to the bucket that avoids
         downscaling where possible (`route_shape`), and each bucket's
-        cascade is built at first use
-    :param params: flax-layout MTCNN param tree; default the bundled
-        weights (`pretrained.load_bundled`)
-    :param weights: a ``.npz`` bundle in the `pretrained` format
+        backend is built at first use
+    :param params: the backend's flax-layout param tree; default the
+        bundled weights (`pretrained.load_bundled`)
+    :param weights: MTCNN: a ``.npz`` bundle in the `pretrained` format or
+        a directory of davidsandberg ``det1/det2/det3.npy`` files (whose
+        P-Net regressors assume the 'caffe' base-box convention, the
+        default then); Faster-RCNN: a ``.npz`` bundle or a pickled ``.npy``
+        dict (the train_detector app's ``detector_params.npy``)
     :param device: torch device; None means cuda (raises without a GPU)
-    :param kwargs: forwarded to `MTCNN`
+    :param kwargs: forwarded to `MTCNN` or `FasterRCNN`
     """
 
     def __init__(self, detector='mtcnn', image_shape=(480, 640),
@@ -108,21 +113,24 @@ class FaceDetector:
         self.detector = detector
         self.device = resolve_device(device)
 
-        if detector == 'frcnnv3':
-            raise NotImplementedError(
-                "the 'frcnnv3' detector is not ported yet (ROADMAP queue A, "
-                'item 13)')
-        if detector not in ('mtcnn', 'pypimtcnn'):
+        from facenet_tpu_torch.detectors import pretrained
+        if detector in ('mtcnn', 'pypimtcnn'):
+            if params is None and weights:
+                if str(weights).endswith('.npz'):
+                    params = pretrained.load_params(weights)
+                else:
+                    from facenet_tpu_torch.detectors.mtcnn.weights import (
+                        load_davidsandberg_weights)
+                    params = load_davidsandberg_weights(weights)
+                    kwargs.setdefault('pnet_box_convention', 'caffe')
+        elif detector == 'frcnnv3':
+            if params is None and weights:
+                params = (pretrained.load_params(weights)
+                          if str(weights).endswith('.npz')
+                          else np.load(weights, allow_pickle=True).item())
+        else:
             raise ValueError(
                 'Undefined face detector type {}'.format(detector))
-
-        from facenet_tpu_torch.detectors import pretrained
-        if params is None and weights:
-            if not str(weights).endswith('.npz'):
-                raise NotImplementedError(
-                    'importing det1/det2/det3.npy MTCNN weights is not ported '
-                    'yet (ROADMAP queue A, item 13); pass a .npz bundle')
-            params = pretrained.load_params(weights)
         if params is None:
             params = pretrained.load_bundled(detector)
             if params is None:
@@ -134,6 +142,11 @@ class FaceDetector:
         device = self.device
 
         def build(shape):
+            if detector == 'frcnnv3':
+                from facenet_tpu_torch.detectors.frcnn.detector import (
+                    FasterRCNN)
+                return FasterRCNN(image_shape=shape, params=params,
+                                  device=device, **kwargs)
             from facenet_tpu_torch.detectors.mtcnn.cascade import MTCNN
             from facenet_tpu_torch.detectors.mtcnn.weights import (
                 validate_params)
@@ -208,7 +221,7 @@ class FaceDetector:
         return results
 
     def _boxes_from_output(self, out, i, scale, pad_x, pad_y):
-        """Map one image's cascade output back to original-pixel boxes."""
+        """Map one image's backend output back to original-pixel boxes."""
         landmarks = out.get('landmarks')
         boxes_i = []
         for k in range(out['boxes'].shape[1]):

@@ -166,6 +166,38 @@ def _jpeg_reduction(h, w, target_shape):
     return 1
 
 
+def force_jpeg_scale(img, k):
+    """Make an opened, not yet loaded PIL JPEG decode at the DCT scale 1/k.
+
+    PIL's ``draft`` takes a size and picks its scale from
+    ``min(w // size_w, h // size_h)``: where a side is shorter than k that
+    minimum is the short side, not k. This sets what ``JpegImageFile.draft``
+    sets once it has chosen a scale: the tile's extent, the image size
+    ceil(side / k) and ``decoderconfig = (k, 0)``.
+
+    :raises RuntimeError: this Pillow lacks one of those internals, or the
+        image was already drafted or holds more than one tile
+    """
+    from PIL import ImageFile
+
+    tile_type = getattr(ImageFile, '_Tile', None)
+    if (tile_type is None or not hasattr(img, 'decoderconfig')
+            or not hasattr(img, '_size') or len(img.tile) != 1
+            or img.decoderconfig):
+        raise RuntimeError(
+            'cannot force the JPEG DCT scale: this Pillow lacks '
+            'ImageFile._Tile, decoderconfig or _size, or the image was '
+            'already drafted')
+    decoder, extent, offset, args = img.tile[0]
+    x0, y0, x1, y1 = extent
+    img.tile = [tile_type(decoder, (x0, y0, (x1 - x0 + k - 1) // k + x0,
+                                    (y1 - y0 + k - 1) // k + y0),
+                          offset, args)]
+    w, h = img.size
+    img._size = ((w + k - 1) // k, (h + k - 1) // k)
+    img.decoderconfig = (k, 0)
+
+
 def letterbox_file(path, route):
     """Decode an image file and letterbox it as the JAX package's
     ``NativeBatchLoader(MODE_LETTERBOX)`` does.
@@ -177,21 +209,24 @@ def letterbox_file(path, route):
         placement that of the native size; raises on an unreadable file
 
     A JPEG is decoded at the reduction 8 / M that libjpeg's M/8 scaling
-    gives (`_jpeg_reduction`, through PIL's ``draft``), and that smaller
-    image is resized onto the native size's placement.
+    gives (`_jpeg_reduction`, forced by `force_jpeg_scale`), and that
+    smaller image is resized onto the native size's placement.
     """
     from PIL import Image
 
     with Image.open(path) as img:
         w, h = img.size
         th, tw = route(h, w)
-        if img.format == 'JPEG':
-            k = _jpeg_reduction(h, w, (th, tw))
-            if k > 1:
-                # PIL picks the largest of 8, 4, 2, 1 not above
-                # min(w // size_w, h // size_h), which is k for this size
-                img.draft('RGB', (max(1, w // k), max(1, h // k)))
+        k = _jpeg_reduction(h, w, (th, tw)) if img.format == 'JPEG' else 1
+        if k > 1:
+            force_jpeg_scale(img, k)
         pixels = np.asarray(img.convert('RGB'))
+        if k > 1:
+            want = (-(-h // k), -(-w // k))
+            if pixels.shape[:2] != want:
+                raise RuntimeError(
+                    f'JPEG decoded at {pixels.shape[:2]}, not at the DCT '
+                    f'scale 1/{k} ({want})')
     canvas = np.zeros((th, tw, 3), np.uint8)
     scale, pad = _letterbox_into(canvas, pixels, h, w)
     return canvas, scale, pad

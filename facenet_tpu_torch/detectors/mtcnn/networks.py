@@ -12,13 +12,19 @@ arXiv:1604.02878): three small CNNs with PReLU activations.
     landmarks 10
 
 The public layout is the JAX package's: inputs [B, H, W, 3] normalized
-NHWC, parameters in the flax tree (`from_flax_params`). Parameters are
-float32; activations run in the module's ``dtype`` (bfloat16 by default):
-inputs, weights and biases are cast to it, PReLU casts its alpha to it, and
-the heads come back as float32 with a float32 softmax.
+NHWC, parameters in the flax tree (`from_flax_params` / `to_flax_params`).
+Parameters are float32; activations run in the module's ``dtype``
+(bfloat16 by default): inputs, weights and biases are cast to it, PReLU
+casts its alpha to it, and the heads come back as float32 with a float32
+softmax, or as float32 logits with ``logits=True`` (the training path; the
+forward is differentiable). `load_flax_tree`, `flax_tree` and `lecun_init_`
+serve every module built of Conv2d, Linear and PReLU children, the
+Faster-RCNN's too.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -56,6 +62,100 @@ class PReLU(nn.Module):
         return torch.where(x >= 0, x, alpha * x)
 
 
+def _tensor(value):
+    return torch.tensor(np.asarray(value, np.float32))      # a copy
+
+
+def flax_tree(module, value=None):
+    """{child: {leaf: numpy}} of a module's Conv2d, Linear and PReLU
+    children in the flax layout; ``value(parameter)`` picks what is read
+    for each parameter (default the parameter itself; Adam's moments,
+    say)."""
+    value = value or (lambda p: p)
+    out = {}
+    for name, child in module.named_children():
+        if isinstance(child, PReLU):
+            out[name] = {'alpha': value(child.alpha)}
+            continue
+        kernel = value(child.weight)
+        kernel = (kernel.permute(2, 3, 1, 0) if isinstance(child, nn.Conv2d)
+                  else kernel.t())
+        out[name] = {'kernel': kernel, 'bias': value(child.bias)}
+    return {name: {leaf: v.detach().float().cpu().numpy()
+                   for leaf, v in leaves.items()}
+            for name, leaves in out.items()}
+
+
+def worst_leaf_gap(got, want):
+    """The largest over the leaves of two nested dicts of arrays (flax
+    trees) of max |got - want| over the largest |entry| of that leaf of
+    `want`."""
+    if not isinstance(want, dict):
+        return float(np.abs(got - want).max() / max(np.abs(want).max(),
+                                                    1e-30))
+    return max(worst_leaf_gap(got[k], w) for k, w in want.items())
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """cuDNN convolutions and cuBLAS products in full float32 (no TF32)."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+@torch.no_grad()
+def load_flax_tree(module, params):
+    """Load a flax param tree ({'conv1': {'kernel', 'bias'}, 'prelu1':
+    {'alpha'}, ...} of arrays, HWIO conv kernels and [in, out] dense
+    kernels) into a module's children; returns the module.
+
+    :raises ValueError: a kernel of another shape than the child's
+    """
+    for name, child in module.named_children():
+        tree = params[name]
+        if isinstance(child, PReLU):
+            child.alpha.copy_(_tensor(tree['alpha']))
+            continue
+        kernel = _tensor(tree['kernel'])
+        if isinstance(child, nn.Conv2d):
+            kernel = kernel.permute(3, 2, 0, 1)        # HWIO -> OIHW
+        else:
+            kernel = kernel.t()                         # [in, out] -> [out, in]
+        if tuple(kernel.shape) != tuple(child.weight.shape):
+            raise ValueError(f'{type(module).__name__}.{name}: kernel '
+                             f'{tuple(kernel.shape)} != '
+                             f'{tuple(child.weight.shape)}')
+        child.weight.copy_(kernel)
+        child.bias.copy_(_tensor(tree['bias']))
+    return module
+
+
+@torch.no_grad()
+def lecun_init_(module, generator):
+    """flax's default initialization from a torch generator: every kernel
+    from a normal of variance 1 / fan_in truncated at two standard
+    deviations, biases 0, PReLU alphas 0.25."""
+    for child in module.children():
+        if isinstance(child, PReLU):
+            child.alpha.fill_(0.25)
+            continue
+        fan_in = child.weight[0].numel()
+        std = (1.0 / fan_in) ** 0.5 / .87962566103423978
+        w = torch.empty(child.weight.shape)
+        torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                    generator=generator)
+        child.weight.copy_(w)
+        child.bias.zero_()
+    return module
+
+
 class _Net(nn.Module):
     """Shared plumbing: flax-tree loading and dtype casts."""
 
@@ -71,38 +171,21 @@ class _Net(nn.Module):
         d = self.dtype
         return F.linear(x, layer.weight.to(d), layer.bias.to(d))
 
-    @torch.no_grad()
     def from_flax_params(self, params):
-        """Load a flax param tree ({'conv1': {'kernel', 'bias'},
-        'prelu1': {'alpha'}, ...} of arrays, HWIO conv kernels and [in, out]
-        dense kernels) into this module; returns self."""
-        for name, child in self.named_children():
-            tree = params[name]
-            if isinstance(child, PReLU):
-                child.alpha.copy_(_tensor(tree['alpha']))
-                continue
-            kernel = _tensor(tree['kernel'])
-            if isinstance(child, nn.Conv2d):
-                kernel = kernel.permute(3, 2, 0, 1)        # HWIO -> OIHW
-            else:
-                kernel = kernel.t()                         # [in, out] -> [out, in]
-            if tuple(kernel.shape) != tuple(child.weight.shape):
-                raise ValueError(f'{type(self).__name__}.{name}: kernel '
-                                 f'{tuple(kernel.shape)} != '
-                                 f'{tuple(child.weight.shape)}')
-            child.weight.copy_(kernel)
-            child.bias.copy_(_tensor(tree['bias']))
-        return self
+        """Load a flax param tree (`load_flax_tree`); returns self."""
+        return load_flax_tree(self, params)
+
+    def to_flax_params(self):
+        """This network's parameters as a flax tree of numpy arrays."""
+        return flax_tree(self)
 
 
-def _tensor(value):
-    return torch.tensor(np.asarray(value, np.float32))      # a copy
-
-
-def _heads(cls, *rest):
-    """Face probability (float32 softmax) and the other heads in float32."""
-    return (torch.softmax(cls.float(), dim=-1)[..., 1],
-            *(r.float() for r in rest))
+def _heads(cls, *rest, logits=False):
+    """Face probability (float32 softmax), or the float32 logits, and the
+    other heads in float32."""
+    cls = cls.float() if logits else torch.softmax(cls.float(),
+                                                   dim=-1)[..., 1]
+    return (cls, *(r.float() for r in rest))
 
 
 class PNet(_Net):
@@ -129,10 +212,10 @@ class PNet(_Net):
         self._packed = None
         return super().from_flax_params(params)
 
-    def forward(self, x):
-        return self.forward_nchw(x.permute(0, 3, 1, 2))
+    def forward(self, x, logits=False):
+        return self.forward_nchw(x.permute(0, 3, 1, 2), logits=logits)
 
-    def forward_nchw(self, x):
+    def forward_nchw(self, x, logits=False):
         """The same network on [B, 3, H, W] input."""
         x = x.to(self.dtype)
         x = self.prelu1(self._conv(self.conv1, x))
@@ -141,7 +224,7 @@ class PNet(_Net):
         x = self.prelu3(self._conv(self.conv3, x))
         cls = self._conv(self.cls, x).permute(0, 2, 3, 1)
         reg = self._conv(self.reg, x).permute(0, 2, 3, 1)
-        return _heads(cls, reg)
+        return _heads(cls, reg, logits=logits)
 
 
 class RNet(_Net):
@@ -160,7 +243,7 @@ class RNet(_Net):
         self.cls = nn.Linear(128, 2)
         self.reg = nn.Linear(128, 4)
 
-    def forward(self, x):
+    def forward(self, x, logits=False):
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         x = self.prelu1(self._conv(self.conv1, x))
         x = max_pool_same(x, 3, 2)
@@ -169,7 +252,8 @@ class RNet(_Net):
         x = self.prelu3(self._conv(self.conv3, x))
         x = x.permute(0, 2, 3, 1).flatten(1)               # NHWC flatten
         x = self.prelu4(self._dense(self.fc1, x))
-        return _heads(self._dense(self.cls, x), self._dense(self.reg, x))
+        return _heads(self._dense(self.cls, x), self._dense(self.reg, x),
+                      logits=logits)
 
 
 class ONet(_Net):
@@ -191,7 +275,7 @@ class ONet(_Net):
         self.reg = nn.Linear(256, 4)
         self.landmarks = nn.Linear(256, 10)
 
-    def forward(self, x):
+    def forward(self, x, logits=False):
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         x = self.prelu1(self._conv(self.conv1, x))
         x = max_pool_same(x, 3, 2)
@@ -203,4 +287,4 @@ class ONet(_Net):
         x = x.permute(0, 2, 3, 1).flatten(1)               # NHWC flatten
         x = self.prelu5(self._dense(self.fc1, x))
         return _heads(self._dense(self.cls, x), self._dense(self.reg, x),
-                      self._dense(self.landmarks, x))
+                      self._dense(self.landmarks, x), logits=logits)

@@ -1,9 +1,10 @@
 """Bundled detector weights: npz (de)serialization and default lookup.
 
-The repository commits a small MTCNN weight bundle trained on the
-synthetic face dataset, so `FaceDetector()` detects faces out of the box.
-``weights/mtcnn_synthetic.npz`` is a byte-identical copy of the JAX
-package's bundle, so both packages compute with the same parameters.
+The repository commits small MTCNN and Faster-RCNN weight bundles trained
+on the synthetic face dataset, so `FaceDetector()` detects faces out of
+the box. ``weights/mtcnn_synthetic.npz`` and ``weights/frcnn_synthetic.npz``
+are byte-identical copies of the JAX package's bundles, so both packages
+compute with the same parameters.
 
 Format: flat npz — nested param-dict keys joined with '/', values raw
 arrays (float16 for repository size). No pickle.
@@ -22,6 +23,7 @@ PRETRAINED_DIR = Path(__file__).parent / 'weights'
 BUNDLED = {
     'mtcnn': 'mtcnn_synthetic.npz',
     'pypimtcnn': 'mtcnn_synthetic.npz',
+    'frcnnv3': 'frcnn_synthetic.npz',
 }
 
 

@@ -11,7 +11,10 @@ import numpy as np
 import torch
 
 from facenet_tpu_torch import h5utils
+from facenet_tpu_torch.dataset import (  # noqa: F401  (the reference's name)
+    equal_batches_input_pipeline)
 from facenet_tpu_torch.logging import logger
+from facenet_tpu_torch.statistics import split_embeddings
 
 
 def renormalized(embeddings):
@@ -106,14 +109,6 @@ def evaluate_embeddings(forward_fn, batches, renormalize=True, mesh=None):
         embeddings = renormalized(embeddings)
 
     return embeddings, labels
-
-
-def split_embeddings(embeddings, labels):
-    """Split a flat embeddings array into per-class arrays, in label order."""
-    list_of_embeddings = []
-    for label in np.unique(labels):
-        list_of_embeddings.append(embeddings[label == labels])
-    return list_of_embeddings
 
 
 class Embeddings:

@@ -69,23 +69,24 @@ def binary_cross_entropy_pair_loss(logits, nrof_classes_per_batch,
     The batch is P classes x K examples in class-major order; pairs (i, k)
     with i // K == k // K are positive. pos_weight rebalances the positive
     to negative skew as ``tf.nn.weighted_cross_entropy_with_logits`` does.
+    The pair indices are made on the logits' device (``torch.triu_indices``,
+    the order of ``np.triu_indices``), so a step makes no host sync.
 
     :raises ValueError: at K = 1, where the batch holds no positive pair
     """
-    batch_size = nrof_classes_per_batch * nrof_examples_per_class
-    iu, ku = np.triu_indices(batch_size, k=1)
-    labels = (iu // nrof_examples_per_class ==
-              ku // nrof_examples_per_class).astype(np.float32)
-    if labels.sum() == 0:
+    k = int(nrof_examples_per_class)
+    batch_size = int(nrof_classes_per_batch) * k
+    nrof_positive = np.float32(nrof_classes_per_batch * k * (k - 1) // 2)
+    if nrof_positive == 0:
         raise ValueError(
             'no positive pairs in the batch: nrof_examples_per_class='
             f'{nrof_examples_per_class} must be >= 2')
-    pos_weight = len(labels) / labels.sum() - 1
+    pos_weight = batch_size * (batch_size - 1) // 2 / nrof_positive - 1
 
     device = logits.device
-    logits = logits[torch.from_numpy(iu).to(device),
-                    torch.from_numpy(ku).to(device)].float()
-    labels = torch.from_numpy(labels).to(device)
+    iu, ku = torch.triu_indices(batch_size, batch_size, 1, device=device)
+    labels = (iu // k == ku // k).float()
+    logits = logits[iu, ku].float()
 
     # (1 - z) * x + (1 + (q - 1) * z) * log(1 + exp(-x)), in its stable form
     log_weight = 1 + (pos_weight - 1) * labels

@@ -17,6 +17,10 @@ over the data ranks instead (`parallel.sharded_eval`).
 The K-fold protocol: KFold(nrof_folds, shuffle=True, random_state=0); on
 each fold's train split pick (a) the max-accuracy threshold and (b) the
 threshold whose FAR equals `far_target`; score both on the test split.
+
+The reference's public names are kept: `pairwise_similarities`, `mean`,
+`std`, `split_embeddings` and `SimilarityCalculator` in numpy, and
+``ConfidenceMatrix(calculator, threshold)``, which counts on the device.
 """
 
 from __future__ import annotations
@@ -68,6 +72,101 @@ def auc(x, y):
             raise ValueError(f'x is neither increasing nor decreasing : {x}.')
         direction = -1
     return direction * float((dx * (y[1:] + y[:-1]) / 2.0).sum())
+
+
+def _cos_to_distance(cos, metric):
+    """Clipped cosine similarities as the metric's distance."""
+    cos = np.clip(cos, -1.0, 1.0)
+    if metric == 0:
+        return 2.0 * (1.0 - cos)      # squared Euclidean of unit vectors
+    if metric == 1:
+        return np.arccos(cos)         # angular distance
+    raise ValueError(f'Undefined similarity metric {metric}')
+
+
+def pairwise_similarities(xa, xb=None, metric=0, atol=1.e-5):
+    """Distances between L2-normalized embeddings, in numpy.
+
+    :param xa: [Na, D] L2-normalized embeddings
+    :param xb: optional [Nb, D]; omitted: the condensed upper triangle of xa
+    :param metric: 0 = squared Euclidean 2(1 - cos); 1 = the angle arccos
+    :raises ValueError: a cosine outside [-1 - atol, 1 + atol] (embeddings
+        not normalized), or an unknown metric
+    """
+    xa = np.asarray(xa)
+    if xb is None:
+        cos = (xa @ xa.T)[np.triu_indices(len(xa), k=1)]
+    else:
+        cos = xa @ np.asarray(xb).T
+    if cos.size and (cos.min() < -(1 + atol) or cos.max() > 1 + atol):
+        raise ValueError(
+            '\nembeddings must be normalized to 1, range {} {}'.format(
+                cos.min(), cos.max()))
+    return _cos_to_distance(cos, metric) if cos.size else cos
+
+
+def mean(x):
+    return np.mean(np.asarray(x))
+
+
+def std(x):
+    return np.std(np.asarray(x))
+
+
+def split_embeddings(embeddings, labels):
+    """Per-class list of embedding arrays, ordered by sorted unique label."""
+    labels = np.asarray(labels)
+    return [embeddings[labels == c] for c in np.unique(labels)]
+
+
+class SimilarityCalculator:
+    """Embeddings, labels and metric for the confusion computations.
+
+    `ConfidenceMatrix` reads `raw`, `labels` and `metric` and counts on the
+    device. ``raw`` keeps a tensor as given (so embeddings already on the
+    card stay there) and makes anything else a float32 numpy array.
+    `evaluate(i, k)` is the reference's per-class-pair probe: the distances
+    of block (i, k) and the weight that makes each class pair, not each
+    image pair, count equally.
+    """
+
+    def __init__(self, embeddings, labels, metric=0):
+        self.metric = metric
+        self.labels = np.asarray(labels)
+        self.raw = (embeddings if isinstance(embeddings, torch.Tensor)
+                    else np.ascontiguousarray(embeddings, dtype=np.float32))
+        self._per_class = None
+
+    @property
+    def embeddings(self):
+        """Per-class float32 numpy arrays, in sorted label order."""
+        if self._per_class is None:
+            raw = self.raw
+            if isinstance(raw, torch.Tensor):
+                raw = raw.detach().float().cpu().numpy()
+            self._per_class = split_embeddings(raw, self.labels)
+        return self._per_class
+
+    @property
+    def nrof_classes(self):
+        return len(np.unique(self.labels))
+
+    def nrof_images(self, i):
+        return len(self.embeddings[i])
+
+    def evaluate(self, i, k):
+        """Distances and normalization weight of class block (i, k)."""
+        c = self.nrof_classes
+        if i == k:
+            dists = pairwise_similarities(self.embeddings[i],
+                                          metric=self.metric)
+            nrof_class_pairs = c              # positive blocks: one a class
+        else:
+            dists = pairwise_similarities(self.embeddings[i],
+                                          self.embeddings[k],
+                                          metric=self.metric)
+            nrof_class_pairs = c * (c - 1) / 2  # unordered negative blocks
+        return dists, dists.size * nrof_class_pairs
 
 
 def confusion_counts(embeddings, labels, thresholds, metric=0, atol=1e-5,
@@ -138,14 +237,18 @@ def confusion_counts(embeddings, labels, thresholds, metric=0, atol=1e-5,
 
 
 class ConfidenceMatrix:
-    """Confusion matrix (tp, tn, fp, fn) over thresholds."""
+    """Confusion matrix (tp, tn, fp, fn) over thresholds.
 
-    def __init__(self, embeddings, labels, threshold, metric=0, device=None,
-                 mesh=None):
+    The reference's contract: a `SimilarityCalculator` and a threshold
+    array; the counts come from `confusion_counts` on `device` (None: the
+    card, where B1 counts them).
+    """
+
+    def __init__(self, calculator, threshold, device=None):
         self.threshold = np.array(threshold, ndmin=1)
         self.tp, self.fn, self.fp, self.tn = confusion_counts(
-            embeddings, labels, self.threshold, metric=metric, device=device,
-            mesh=mesh)
+            calculator.raw, calculator.labels, self.threshold,
+            metric=calculator.metric, device=device)
 
     def _ratio(self, num, denom):
         """num / denom per threshold; 1.0 where the denominator is empty
@@ -298,9 +401,9 @@ class FaceToFaceValidation:
 
     def _matrix(self, subset, thresholds):
         index = torch.from_numpy(subset).to(self.device)
-        return ConfidenceMatrix(self.embeddings[index], self.labels[subset],
-                                thresholds, metric=self.metric,
-                                device=self.device)
+        calculator = SimilarityCalculator(self.embeddings[index],
+                                          self.labels[subset], self.metric)
+        return ConfidenceMatrix(calculator, thresholds, device=self.device)
 
     def _far_threshold(self, matrix, far_target):
         """Threshold whose train-fold FAR hits far_target, 0 if unreachable

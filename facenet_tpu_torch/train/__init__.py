@@ -1,2 +1,2 @@
 """Training of the port: the softmax / center / triplet trainer and its
-checkpoints."""
+checkpoints, the pair-classifier trainer and the MTCNN stage trainer."""

@@ -9,7 +9,9 @@ scenes the detector quality gate and the on-card smoke run use.
 matrices) for faces at chosen rotations, in torch. `lfw_shape_counts` gives
 per-identity image counts with LFW's shape (5,749 identities, 13,233
 images, a long tail). `write_identity_dataset` writes directory-per-class
-face crops as PNG files (PIL, imported there) for the training tests.
+face crops as PNG files for the training tests, and
+`write_detection_dataset` scenes with JSONL box annotations for the
+train_detector app (PIL imported there).
 
 Landmark convention matches MTCNN (Zhang et al. 2016): left eye, right
 eye, nose tip, left mouth corner, right mouth corner, as (x, y) pixels.
@@ -18,13 +20,15 @@ The same seed gives the same scene as ``facenet_tpu.utils.synthetic``.
 
 from __future__ import annotations
 
+import json
 import math
 from pathlib import Path
 
 import numpy as np
 
 __all__ = ['identity_params', 'render_face_patch', 'render_scene',
-           'lfw_shape_counts', 'write_identity_dataset']
+           'lfw_shape_counts', 'write_identity_dataset',
+           'write_detection_dataset']
 
 SCENE_FAMILIES = ('base', 'shifted', 'stress')
 
@@ -674,3 +678,35 @@ def write_identity_dataset(directory, n_classes, images_per_class, size=160,
             img = render_face_patch(size, ident, rng)
             Image.fromarray(img).save(cls_dir / f'person_{label:04d}_{i:04d}.png')
     return directory
+
+
+def write_detection_dataset(directory, n_images, shape=(256, 256), seed=0,
+                            min_face=24, max_face=None, empty_frac=0.1):
+    """Scenes as PNG files and ``annotations.jsonl`` (one object a scene:
+    ``image``, ``boxes``, ``landmarks``, rounded to 2 decimals) for the
+    train_detector app; the same seed writes the same files as the JAX
+    package's function.
+
+    :returns: path of the annotations file
+    """
+    from PIL import Image
+
+    directory = Path(str(directory)).expanduser()
+    directory.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    ann_path = directory / 'annotations.jsonl'
+
+    with ann_path.open('w') as f:
+        for i in range(int(n_images)):
+            n_faces = 0 if rng.rand() < empty_frac else rng.randint(1, 4)
+            img, boxes, lmks = render_scene(rng, shape=shape, n_faces=n_faces,
+                                            min_face=min_face,
+                                            max_face=max_face)
+            name = f'scene_{i:05d}.png'
+            Image.fromarray(img).save(directory / name)
+            f.write(json.dumps({
+                'image': name,
+                'boxes': np.round(boxes, 2).tolist(),
+                'landmarks': np.round(lmks, 2).tolist() if len(lmks) else [],
+            }) + '\n')
+    return ann_path

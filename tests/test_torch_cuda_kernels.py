@@ -645,3 +645,41 @@ def test_grid_step_on_the_card_equals_one_rank():
         np.testing.assert_allclose(grid[key], one[key], rtol=1e-5,
                                    atol=1e-12, err_msg=key)
     assert worst <= 1e-5, worst
+
+
+# Faster-RCNN serving and training on the card (chip_smoke phases 35 and
+# 37 at 128 x 128): no hand-written kernel runs on these paths.
+
+def _frcnn_scenes(n, seed=0):
+    rng = np.random.RandomState(seed)
+    scenes = [synthetic.render_scene(rng, shape=(128, 128), n_faces=2,
+                                     min_face=30, max_face=80)
+              for _ in range(n)]
+    return np.stack([s[0] for s in scenes]), [s[1] for s in scenes]
+
+
+@pytest.mark.cuda
+def test_frcnn_detection_on_the_card_matches_the_cpu():
+    _gpu()
+    from facenet_tpu_torch.detectors.evaluation import compare_outputs
+    from facenet_tpu_torch.detectors.frcnn import FasterRCNN
+    images, _ = _frcnn_scenes(4)
+    params = pretrained.load_bundled('frcnnv3')
+    outs = [FasterRCNN(image_shape=(128, 128), params=params,
+                       device=device).detect_batch(images)
+            for device in ('cuda', 'cpu')]
+    gap = compare_outputs(*outs)
+    assert gap['n_b'] >= 4 and gap['unmatched'] == 0, gap
+    assert gap['box_px'] <= 1.5 and gap['score'] <= 0.02, gap
+
+
+@pytest.mark.cuda
+def test_frcnn_train_step_on_the_card_matches_the_cpu():
+    _gpu()
+    from facenet_tpu_torch.detectors.frcnn import detector
+    images, gts = _frcnn_scenes(2, seed=1)
+    (card, cpu), worst = detector.step_on_devices(
+        pretrained.load_bundled('frcnnv3'), images, gts)
+    for k, v in cpu.items():
+        assert card[k] == pytest.approx(v, rel=1e-4), k
+    assert worst <= 1e-3

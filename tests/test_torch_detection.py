@@ -57,11 +57,17 @@ def test_detect_maps_letterbox_back_and_routes_buckets(tmp_path):
     assert got[0][0].info() == box.info()
 
 
-def test_unported_detectors_raise():
-    with pytest.raises(NotImplementedError, match='13'):
-        FaceDetector(detector='frcnnv3', device='cpu')
-    with pytest.raises(NotImplementedError, match='npy'):
-        FaceDetector(weights='/nonexistent/det_dir', device='cpu')
+def test_detector_routes(tmp_path):
+    """'frcnnv3' serves the bundled Faster-RCNN and ``weights=<dir>`` reads
+    det1-3.npy (a missing file raises FileNotFoundError, not
+    NotImplementedError); an unknown detector raises ValueError."""
+    from facenet_tpu_torch.detectors.frcnn import FasterRCNN
+    fd = FaceDetector(detector='frcnnv3', image_shape=(128, 128),
+                      device='cpu')
+    assert isinstance(fd.backend_for((128, 128)), FasterRCNN)
+    assert isinstance(fd.detect(np.zeros((100, 120, 3), np.uint8)), list)
+    with pytest.raises(FileNotFoundError):
+        FaceDetector(weights=tmp_path / 'no_det_dir', device='cpu')
     with pytest.raises(ValueError, match='Undefined'):
         FaceDetector(detector='haar', device='cpu')
 

@@ -63,7 +63,11 @@ def test_port_imports_no_jax_and_no_facenet_tpu():
                  'train.softmax', 'train.checkpoint', 'callbacks',
                  'apps.train_softmax', 'parallel.mesh',
                  'parallel.sharded_eval', 'parallel.launch',
-                 'apps.train_softmax_distributed'):
+                 'apps.train_softmax_distributed', 'faceclass',
+                 'train.classifier', 'apps.train_classifier',
+                 'detectors.frcnn', 'detectors.frcnn.network',
+                 'detectors.frcnn.detector', 'train.mtcnn',
+                 'apps.train_detector'):
         assert f'facenet_tpu_torch.{name}' in result['names'], name
 
 

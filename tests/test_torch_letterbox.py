@@ -179,3 +179,42 @@ def test_detect_files_feeds_the_native_letterbox(native, tmp_path):
     pred = [box.left, box.top, box.left + box.width, box.top + box.height]
     from facenet_tpu_torch.detectors import evaluation
     assert evaluation.iou_matrix(gt, pred)[0, 0] > 0.5
+
+
+@pytest.mark.parametrize('shape', [(3, 6000), (5, 6000), (7, 6000),
+                                   (2, 3000), (6000, 3), (4, 4000),
+                                   (7, 2000), (1, 5000), (300, 400),
+                                   (1000, 2000)])
+def test_letterbox_file_decodes_thin_jpegs_at_the_native_scale(
+        native, tmp_path, shape):
+    """A side shorter than the DCT reduction k: PIL's ``draft`` would pick
+    its scale from that side; the forced scale decodes at 1/k as libjpeg
+    does in the native loader. Random JPEGs into 480x640, tolerance 0."""
+    rng = np.random.RandomState(shape[0] * 7 + shape[1])
+    path = tmp_path / 'thin.jpg'
+    Image.fromarray(rng.randint(0, 256, shape + (3,)).astype(np.uint8)) \
+        .save(path)
+    want = native.decode_image(str(path), (480, 640), native.MODE_LETTERBOX)
+    got, scale, pad = letterbox.letterbox_file(str(path),
+                                               lambda h, w: (480, 640))
+    assert _max_diff(got, want) == 0
+    assert (scale, pad) == native.letterbox_geometry(*shape, (480, 640))
+
+
+def test_forced_jpeg_scale_needs_the_pillow_internals(tmp_path):
+    """`force_jpeg_scale` rests on ``ImageFile._Tile``, ``decoderconfig``
+    and ``_size``: they are present here, the decode comes out at
+    ceil(side / k), and an image already drafted raises instead of
+    decoding at another scale."""
+    from PIL import ImageFile
+    assert hasattr(ImageFile, '_Tile')
+    path = tmp_path / 'a.jpg'
+    Image.fromarray(np.full((5, 6000, 3), 128, np.uint8)).save(path)
+    with Image.open(path) as img:
+        assert hasattr(img, 'decoderconfig') and hasattr(img, '_size')
+        letterbox.force_jpeg_scale(img, 8)
+        assert np.asarray(img.convert('RGB')).shape == (1, 750, 3)
+    with Image.open(path) as img:
+        img.draft('RGB', (750, 1))
+        with pytest.raises(RuntimeError, match='DCT scale'):
+            letterbox.force_jpeg_scale(img, 8)

@@ -1,10 +1,13 @@
 """Port FaceToFaceValidation == facenet_tpu's on well-separated embeddings
-(atol 1e-6); the port's own KFold and auc == sklearn's."""
+(atol 1e-6); the port's own KFold and auc == sklearn's; the reference's
+public API (`pairwise_similarities`, `SimilarityCalculator`,
+``ConfidenceMatrix(calculator, threshold)``) == facenet_tpu's (1e-6)."""
 
 import jax  # noqa: F401  (conftest pins JAX to the CPU)
 import numpy as np
 import pytest
 import sklearn.metrics
+import torch
 from sklearn.model_selection import KFold
 
 from facenet_tpu import statistics as jax_statistics
@@ -82,3 +85,82 @@ def test_auc_matches_sklearn(direction):
 def test_auc_rejects_non_monotonic_x():
     with pytest.raises(ValueError, match='increasing nor decreasing'):
         statistics.auc([0.0, 0.5, 0.2], [0.0, 1.0, 0.5])
+
+
+# The reference's public statistics API, on tests/test_statistics.py's
+# clustered set (6 classes x 8, 32-d), against the JAX package: 1e-6.
+
+@pytest.fixture(scope='module')
+def clustered():
+    from conftest import make_embeddings
+    return make_embeddings(np.random.RandomState(0))
+
+
+@pytest.mark.parametrize('metric', [0, 1])
+def test_pairwise_similarities_match_jax(clustered, metric):
+    embs, _ = clustered
+    condensed = statistics.pairwise_similarities(embs[:10], metric=metric)
+    assert condensed.shape == (45,)
+    np.testing.assert_allclose(
+        condensed, jax_statistics.pairwise_similarities(embs[:10],
+                                                        metric=metric),
+        atol=1e-6)
+    cross = statistics.pairwise_similarities(embs[:5], embs[5:12],
+                                             metric=metric)
+    assert cross.shape == (5, 7)
+    np.testing.assert_allclose(
+        cross, jax_statistics.pairwise_similarities(embs[:5], embs[5:12],
+                                                    metric=metric),
+        atol=1e-6)
+    upper = 4 if metric == 0 else np.pi
+    assert np.all(condensed >= 0) and np.all(condensed <= upper)
+
+
+def test_pairwise_similarities_reject_unnormalized_and_bad_metric():
+    x = np.full((4, 8), 3.0, dtype=np.float32)
+    with pytest.raises(ValueError, match='normalized'):
+        statistics.pairwise_similarities(x)
+    unit = x / np.linalg.norm(x, axis=1, keepdims=True)
+    with pytest.raises(ValueError, match='metric'):
+        statistics.pairwise_similarities(unit, metric=7)
+
+
+def test_similarity_calculator_evaluate_matches_jax(clustered):
+    embs, labels = clustered
+    got = statistics.SimilarityCalculator(embs, labels, metric=0)
+    want = jax_statistics.SimilarityCalculator(embs, labels, metric=0)
+    assert got.nrof_classes == want.nrof_classes == 6
+    assert [got.nrof_images(i) for i in range(6)] == \
+        [want.nrof_images(i) for i in range(6)]
+    for i, k in ((0, 0), (3, 3), (1, 0), (5, 2)):
+        d_got, w_got = got.evaluate(i, k)
+        d_want, w_want = want.evaluate(i, k)
+        np.testing.assert_allclose(d_got, d_want, atol=1e-6)
+        assert w_got == w_want
+    np.testing.assert_allclose(statistics.mean(embs), jax_statistics.mean(embs))
+    np.testing.assert_allclose(statistics.std(embs), jax_statistics.std(embs))
+    for a, b in zip(statistics.split_embeddings(embs, labels),
+                    jax_statistics.split_embeddings(embs, labels)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize('metric', [0, 1])
+def test_confidence_matrix_from_calculator_matches_jax(clustered, metric):
+    """``ConfidenceMatrix(SimilarityCalculator(e, l, metric), thresholds)``,
+    the reference's constructor, on the port (the plain B1 on the CPU) and
+    on JAX; a calculator holding a tensor counts the same."""
+    embs, labels = clustered
+    upper = 4 if metric == 0 else np.pi
+    thresholds = np.linspace(0, upper, 50)
+    want = jax_statistics.ConfidenceMatrix(
+        jax_statistics.SimilarityCalculator(embs, labels, metric=metric),
+        thresholds)
+    for raw in (embs, torch.from_numpy(embs)):
+        got = statistics.ConfidenceMatrix(
+            statistics.SimilarityCalculator(raw, labels, metric=metric),
+            thresholds, device='cpu')
+        for attr in ('tp', 'fn', 'fp', 'tn', 'accuracy', 'precision',
+                     'tp_rates', 'tn_rates', 'fp_rates'):
+            np.testing.assert_allclose(getattr(got, attr),
+                                       getattr(want, attr), atol=1e-6,
+                                       err_msg=attr)
