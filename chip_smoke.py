@@ -249,11 +249,44 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      the card, one batch each: finite outputs.
      No hand-written kernel lies on the paths of 35-40: every launch count
      stays 0 there.
+ 41. import -> export -> compiled serving of full-width IRv1 (default
+     config, 512-d, init_variables(seed=0) with BatchNorm statistics and
+     biases moved off their init): the reference's folded units
+     (export_ref_h5 -> import_h5_weights where h5py is installed, else
+     the same units in memory, reference_units -> import_units), served by
+     FaceNet at cosine >= 0.999 against the original tree; the
+     export_model app (--import-h5 with --h5 where h5py is installed,
+     else --model-dir of the imported bundle) writes model.pt2;
+     load_compiled on the card at batches 1, 3 and 128 against FaceNet
+     (stem='cudnn'): cosine >= 0.9999; the int8 program that
+     save_compiled would write (export_program, 32 calibration images),
+     run without its file round trip (model.pt2's above is the same code):
+     finite unit-norm rows at cosine >= 0.999 against FaceNet int8; ms per
+     128 of the artifact, issued and device busy, beside FaceNet's (the
+     int8 pair issued); the op histogram's top 5; no launch of the seven
+     kernels;
+ 42. full-width Inception-ResNet-v2 training from the zoo's
+     inception_resnet_v2.yaml (keep 0.5, 512-d) with the 8,631-way head at
+     batch 100, bf16: 20 steps on phase 25's in-memory images with a
+     falling cross-entropy; ms a step as issued, img/s, peak memory; the
+     trained backbone served by FaceNet (IRv2, bf16) at cosine >= 0.995
+     against its float32 eval forward;
+ 43. one TINY IRv2 step in float64 at keep 1.0, TF32 off, card vs CPU
+     through step_on_devices: metrics at rtol 1e-5, every leaf within
+     1e-5 of its update + 1e-12; then the same at keep 0.5 (finite loss,
+     the mask drawn on the host from the same generator), and the kept
+     share of a 100 x 1536 mask within 5 binomial standard deviations;
+ 44. profiling.trace around 3 of phase 42's steps, each in an annotate
+     span: the trace file exists and names the spans; StepTimer's items/s;
+     from the trace, the step's device busy time and img/s at it, its
+     launches and its top 10 kernels.
+     No hand-written kernel lies on the paths of 41-44 either.
 
 The GPU machine may lack PIL, yaml, h5py, sklearn and click, so nothing
-here imports them: the model bundle is built in memory, images and scenes
-are numpy arrays, and phases 18-20 hand the port's loaders arrays through a
-callable instead of decoding files.
+here imports them at module level: the model bundle is built in memory,
+images and scenes are numpy arrays, and phases 18-20 hand the port's
+loaders arrays through a callable instead of decoding files; phase 41
+takes the in-memory form of the h5 import when h5py is missing.
 
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -2775,6 +2808,321 @@ def slice11_phases(rng, context):
     print(f'phases 35-40: {time.monotonic() - started:.1f} s')
 
 
+def perturbed_variables(variables, seed):
+    """`variables` with every BatchNorm statistic and every bias moved off
+    its init (mean N(0, 0.1), var U(0.5, 1.5), biases N(0, 0.05)), so that
+    the fold of an import does work."""
+    rng = np.random.RandomState(seed)
+
+    def walk(tree, fn, key=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, fn, k) for k, v in tree.items()}
+        return fn(key, tree)
+
+    def stats(key, leaf):
+        if key == 'mean':
+            return rng.normal(0, 0.1, leaf.shape).astype(np.float32)
+        return rng.uniform(0.5, 1.5, leaf.shape).astype(np.float32)
+
+    def params(key, leaf):
+        if key == 'bias':
+            return rng.normal(0, 0.05, leaf.shape).astype(np.float32)
+        return leaf
+
+    return {'params': walk(variables['params'], params),
+            'batch_stats': walk(variables['batch_stats'], stats)}
+
+
+def min_cosine(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(((a * b).sum(axis=1) / np.maximum(
+        np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1),
+        1e-30)).min())
+
+
+def trace_busy(trace, span):
+    """(device busy ms, span wall ms, kernel launches, [(kernel, ms, count)]
+    by time) per span of a torch.profiler Chrome trace whose spans' names
+    start with `span`: the kernels', copies' and sets' own durations,
+    without annotations, as `device_busy` counts them."""
+    events = trace['traceEvents']
+    spans = [e['dur'] for e in events if e.get('cat') == 'user_annotation'
+             and str(e.get('name', '')).startswith(span)]
+    rows = {}
+    for e in events:
+        if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset'):
+            ms, count = rows.get(e['name'], (0.0, 0))
+            rows[e['name']] = (ms + e['dur'] / 1e3, count + 1)
+    n = len(spans)
+    top = sorted(((name, ms / n, count // n)
+                  for name, (ms, count) in rows.items()),
+                 key=lambda row: -row[1])
+    launches = sum(count for _, count in rows.values()) / n
+    return (sum(ms for _, ms, _ in top), sum(spans) / n / 1e3, launches,
+            top)
+
+
+def slice12_phases(rng, context):
+    """Phases 41-44 (see the module docstring): the h5 import, the
+    export_model app and the compiled artifact on the card, Inception-
+    ResNet-v2 training from the zoo, IRv2's step card vs CPU, and a trace
+    of IRv2 steps; no hand-written kernel runs on these paths, so every
+    launch count stays 0. Their files go to a temporary directory that is
+    removed at the end."""
+    import shutil
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix='chip_smoke_12_'))
+    try:
+        _slice12(rng, context, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _slice12(rng, context, work):
+    import importlib.util
+
+    import torch
+
+    from facenet_tpu_torch import FaceNet, export, models
+    from facenet_tpu_torch.apps import export_model
+    from facenet_tpu_torch.config import Config
+    from facenet_tpu_torch.models import import_weights
+    from facenet_tpu_torch.models.inception_resnet_v1 import (
+        InceptionResnetV1, init_variables)
+    from facenet_tpu_torch.train.softmax import (SoftmaxTrainer,
+                                                 step_on_devices)
+    from facenet_tpu_torch.utils import profiling
+    from facenet_tpu_torch.utils.timing import cuda_ms
+    from facenet_tpu_torch.utils.timing import spread as _spread
+
+    smi = context['smi']
+    started = time.monotonic()
+    images = rng.integers(0, 256, (128, 160, 160, 3)).astype(np.uint8)
+
+    # 41. import -> export -> compiled serving
+    print('[41] full-width IRv1 (default config, 512-d, init_variables(seed=0)'
+          ' with BatchNorm statistics and biases moved): the reference\'s '
+          'folded-BN units -> import -> export_model -> model.pt2 on the '
+          'card (cuda)')
+    t0 = time.monotonic()
+    original = perturbed_variables(init_variables(seed=0), 41)
+    has_h5 = importlib.util.find_spec('h5py') is not None
+    if has_h5:
+        h5 = import_weights.export_ref_h5(original, work / 'ref.h5')
+        imported = import_weights.import_h5_weights(h5)
+        app_args = ['--import-h5', str(h5), '--h5', str(work / 'dump.h5')]
+        print('  export_ref_h5 -> import_h5_weights -> export_model '
+              '--import-h5 --h5')
+    else:
+        units = import_weights.reference_units(original)
+        imported = import_weights.import_units(units)
+        source = export.save_model(
+            work / 'imported',
+            InceptionResnetV1().from_flax_variables(imported))
+        app_args = ['--model-dir', str(source)]
+        print(f'  h5py is not installed here: the {len(units)} folded units '
+              'go through reference_units -> import_units in memory (the h5 '
+              'file round trip runs in the CPU tests); export_model '
+              '--model-dir of the imported bundle')
+
+    def bundle_of(variables):
+        return export.ModelBundle(variables, {
+            'model_class': 'InceptionResnetV1', 'config': None,
+            'image_size': 160, 'normalization': 0})
+
+    served = FaceNet(Config({}), device='cuda', bundle=bundle_of(imported))
+    want = FaceNet(Config({}), device='cuda', bundle=bundle_of(original))
+    cos = min_cosine(served.evaluate(images), want.evaluate(images))
+    print(f'  imported tree vs the original through FaceNet, 128 images: '
+          f'min cosine {cos:.6f}')
+    require(cos >= 0.999, f'imported tree serves other embeddings ({cos})')
+    print(f'  tree, import and both FaceNets: {time.monotonic() - t0:.1f} s')
+
+    reset_launches()
+    t1 = time.monotonic()
+    export_model.main(app_args + ['--output', str(work / 'bundle'),
+                                  '--device', 'cuda'])
+    compiled = export.load_compiled(work / 'bundle', device='cuda')
+    print(f'  export_model wrote {work / "bundle" / "model.pt2"} '
+          f'({(work / "bundle" / "model.pt2").stat().st_size / 2 ** 20:.1f} '
+          f'MiB) and it loaded: {time.monotonic() - t1:.1f} s (the first '
+          'torch.export of the run, its trace, the move of its weights to '
+          'the CPU, the file, the load and the move back)')
+    for batch in (1, 3, 128):
+        got = compiled(images[:batch]).cpu().numpy()
+        ref = served.evaluate(images[:batch])
+        cos = min_cosine(got, ref)
+        print(f'  model.pt2 at batch {batch}: {got.shape}, min cosine to '
+              f'FaceNet {cos:.6f}')
+        require(got.shape == (batch, 512) and np.isfinite(got).all()
+                and cos >= 0.9999, f'compiled artifact at batch {batch}')
+    calib = images[:32]
+    t1 = time.monotonic()
+    # the int8 program save_compiled writes, run without its file: the
+    # file round trip is model.pt2's above (and the int8 one's in the
+    # cuda tests)
+    q_compiled = export.CompiledModel(
+        export.export_program(bundle_of(imported), quantize='int8',
+                              calib_images=calib, device='cuda'),
+        compiled.device)
+    q_s = time.monotonic() - t1
+    q_facenet = FaceNet(Config({'quantize': 'int8', 'calib': calib}),
+                        device='cuda', bundle=bundle_of(imported))
+    got = q_compiled(images).cpu().numpy()
+    norms = np.linalg.norm(got, axis=1)
+    cos = min_cosine(got, q_facenet.evaluate(images))
+    print(f'  int8 program (32 calibration images; calibrated and traced '
+          f'in {q_s:.1f} s): norms {norms.min():.6f}-{norms.max():.6f}, min '
+          f'cosine to FaceNet int8 {cos:.6f}')
+    require(np.isfinite(got).all() and np.abs(norms - 1).max() < 1e-3
+            and cos >= 0.999, 'int8 compiled program')
+    counts = read_launches()
+    require(counts == only(), f'the export path launched kernels: {counts}')
+    cards = torch.from_numpy(images).cuda()
+    for name, fn in (('model.pt2', lambda: compiled(cards)),
+                     ('FaceNet', lambda: served.dispatch(cards))):
+        ms, windows = cuda_ms(fn, reps=5, warmup=1)
+        busy, wall, launches = busy_line(fn, 1)
+        print(f'  {name}: {ms:.3f} ms per 128 as issued ({_spread(windows)}),'
+              f' device busy {busy:.3f} ms, {launches:.0f} launches, on {smi}')
+    for name, fn in (('int8 program', lambda: q_compiled(cards)),
+                     ('FaceNet int8', lambda: q_facenet.dispatch(cards))):
+        ms, windows = cuda_ms(fn, reps=2, warmup=1)
+        print(f'  {name}: {ms:.3f} ms per 128 as issued ({_spread(windows)}),'
+              f' on {smi}')
+    top = list(compiled.op_histogram().items())[:5]
+    print(f'  op histogram, top 5: {top}; kernel launches {counts}; '
+          f'{time.monotonic() - t0:.1f} s')
+
+    # 42. IRv2 training from the zoo
+    print(f'[42] full-width Inception-ResNet-v2 from the zoo\'s '
+          f'inception_resnet_v2.yaml + {VGGFACE2_CLASSES}-way head, bf16, 20 '
+          'softmax steps at batch 100 on phase 25\'s images (cuda)')
+    t0 = time.monotonic()
+    zoo = models.load_model_config('inception_resnet_v2')
+    print(f'  zoo config: module {zoo.module}, keep_probability '
+          f'{zoo.config.keep_probability}, embedding_size '
+          f'{zoo.config.embedding_size}, repeat {zoo.config.repeat}')
+    train_np, labels_np = context['train_images'], context['train_labels']
+    trainer = SoftmaxTrainer(train_config(), VGGFACE2_CLASSES,
+                             model_cfg=zoo, device='cuda')
+    state = trainer.init_state(seed=0)
+    print(f'  state made in {time.monotonic() - t0:.1f} s: '
+          f'{sum(p.numel() for p in state.model.parameters()):,} parameters')
+    require(type(state.model.backbone).__name__ == 'InceptionResnetV2'
+            and state.model.backbone.keep == 0.5, 'the zoo built no IRv2')
+    batches = [trainer.placed(train_np[i:i + 100], labels_np[i:i + 100])
+               for i in range(0, 400, 100)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    entropies, losses = [], []
+    t1 = time.monotonic()
+    for i in range(20):
+        state, metrics = trainer.step_fn(state, *batches[i % 4])
+        entropies.append(metrics['cross_entropy'])
+        losses.append(metrics['loss'])
+    entropies = [float(v) for v in entropies]
+    losses = [float(v) for v in losses]
+    run_s = time.monotonic() - t1
+    counts = read_launches()
+    first, last = np.mean(entropies[:5]), np.mean(entropies[-5:])
+    print(f'  cross-entropies {" ".join(f"{v:.3f}" for v in entropies)}')
+    print(f'  cross-entropy: mean of the first 5 {first:.4f}, of the last 5 '
+          f'{last:.4f}; 20 steps in {run_s:.2f} s wall (first steps '
+          f'included); kernel launches {counts}')
+    require(counts == only(), f'IRv2 training launched kernels: {counts}')
+    require(np.isfinite(losses).all() and last < first,
+            f'IRv2: loss not finite or cross-entropy not falling: {first} '
+            f'-> {last}')
+    peak = torch.cuda.max_memory_allocated()
+
+    def step():
+        trainer.step_fn(state, *batches[0])
+
+    ms, windows = cuda_ms(step, reps=3, warmup=1)
+    print(f'  on {smi}: {ms:.3f} ms per step as the host issues it (windows '
+          f'{_spread(windows)}) = {100e3 / ms:.1f} img/s; '
+          f'max_memory_allocated {peak / 2 ** 30:.2f} GiB (device busy, '
+          'launches and the top kernels: phase 44\'s trace)')
+    backbone = state.model.backbone
+    trained = export.ModelBundle(backbone.to_flax_variables(), {
+        'model_class': 'InceptionResnetV2', 'config': backbone.config,
+        'image_size': 160, 'normalization': 0})
+    bf16 = FaceNet(Config({}), device='cuda', bundle=trained)
+    tf32 = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            ref = backbone(cards[:64], dtype=torch.float32).cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    cos = min_cosine(bf16.evaluate(images[:64]), ref)
+    print(f'  the trained backbone through FaceNet (IRv2, bf16) vs its '
+          f'float32 eval forward, 64 images: min cosine {cos:.6f}; '
+          f'{time.monotonic() - t0:.1f} s')
+    require(cos >= 0.995, f'trained IRv2 served otherwise ({cos})')
+
+    # 43. IRv2 step card vs CPU
+    print('[43] TINY IRv2 (repeat [1, 1, 1], 512-d), one float64 softmax '
+          'step at batch 8, card vs CPU (TF32 off), keep 1.0 then 0.5')
+    t0 = time.monotonic()
+    tiny = {'repeat': [1, 1, 1], 'embedding_size': 512}
+    for keep in (1.0, 0.5):
+        (card, cpu), worst, moved = step_on_devices(
+            train_config(1), 16, train_np[:8], labels_np[:8] % 16,
+            model_cfg={'module': 'inception_resnet_v2',
+                       'config': dict(tiny, keep_probability=keep)},
+            dtype=torch.float64, atol=1e-12)
+        print(f'  keep {keep}: loss card {card["loss"]:.12f} cpu '
+              f'{cpu["loss"]:.12f}; worst leaf |card - cpu| - 1e-12 = '
+              f'{worst:.3e} of its largest update ({moved:.3e})')
+        for key, value in cpu.items():
+            require(abs(card[key] - value) <= 1e-5 * abs(value) + 1e-12,
+                    f'IRv2 keep {keep}: card {key} != cpu')
+        require(np.isfinite(card['loss']) and worst <= 1e-5,
+                f'IRv2 keep {keep}: card update != cpu update ({worst})')
+    net = models.create_model_from_config(
+        {'module': 'inception_resnet_v2',
+         'config': dict(tiny, keep_probability=0.5)})
+    mask = net.dropout_mask(100, torch.Generator().manual_seed(0))
+    share, sigma = mask.float().mean().item(), np.sqrt(0.25 / mask.numel())
+    print(f'  kept share of a 100 x 1536 mask {share:.5f} (0.5 +- 5 x '
+          f'{sigma:.5f}); {time.monotonic() - t0:.1f} s')
+    require(abs(share - 0.5) <= 5 * sigma, 'dropout keeps another share')
+
+    # 44. a trace of IRv2 steps
+    print('[44] profiling.trace around 3 of phase 42\'s steps, each in an '
+          'annotate span; StepTimer (cuda)')
+    t0 = time.monotonic()
+    timer = profiling.StepTimer(items_per_step=100, name='IRv2 step')
+    with profiling.trace(work / 'trace'):
+        for i in range(3):
+            with timer, profiling.annotate(f'irv2-step-{i}'):
+                state, metrics = trainer.step_fn(state, *batches[i])
+                float(metrics['loss'])
+    trace_file = work / 'trace' / 'trace.json'
+    text = trace_file.read_text()
+    named = [f'irv2-step-{i}' in text for i in range(3)]
+    print(f'  {trace_file} ({len(text) / 2 ** 20:.1f} MiB) names the spans: '
+          f'{named}; {timer!r} (host, synchronized each step, traced)')
+    require(all(named) and timer.items_per_sec > 0, 'trace or timer')
+    busy, wall, launches, top = trace_busy(json.loads(text), 'irv2-step-')
+    print(f'  phase 42\'s step in the trace, on {smi}: device busy '
+          f'{busy:.3f} ms a step ({busy / wall:.3f} of the span\'s '
+          f'{wall:.3f} ms) = {100e3 / busy:.1f} img/s at the device busy '
+          f'time; {launches:.0f} launches a step; top 10:')
+    for name, ms, count in top[:10]:
+        print(f'    {ms:8.3f} ms  x{count:<4d} {name[:90]}')
+    print(f'  {time.monotonic() - t0:.1f} s')
+    print(f'  phases 41-44: {time.monotonic() - started:.1f} s')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2998,6 +3346,7 @@ def main():
     slice9_phases(rng, context)
     slice10_phases(context)
     slice11_phases(rng, context)
+    slice12_phases(rng, context)
 
     print(f'total {time.monotonic() - started:.1f} s')
     print(json.dumps({'kernels': [pair_entry] + detection + slice3}))

@@ -146,6 +146,14 @@ class FaceNet:
         return self.evaluate(image_arrays)
 
 
+def check_output_size(model):
+    """The embedding width of an Inception-ResNet-v1 module (its config's
+    ``output.size``, defaults filled in)."""
+    from facenet_tpu_torch.models.inception_resnet_v1 import \
+        check_input_config
+    return check_input_config(model.config).output.size
+
+
 def __getattr__(name):
     # lazy, so `import facenet_tpu_torch` does not load the detector
     if name == 'FacePipeline':

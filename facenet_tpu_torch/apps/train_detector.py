@@ -25,7 +25,7 @@ from pathlib import Path
 
 import numpy as np
 
-from facenet_tpu_torch import config, ioutils
+from facenet_tpu_torch import config, ioutils, logging
 from facenet_tpu_torch.device import resolve_device
 from facenet_tpu_torch.logging import logger
 
@@ -171,25 +171,29 @@ def main(argv=None):
     cfg = config.train_detector({'config': args.config_file},
                                 app_file_name=__file__)
 
-    records = load_annotations(cfg.annotations)
-    n_boxes = sum(len(r['boxes']) for r in records)
-    print(f'annotations: {len(records)} images, {n_boxes} boxes')
-    if not records:
-        raise ValueError(f'no annotations in {cfg.annotations}')
+    sink = logging.configure_logging(cfg.logs)
+    try:
+        records = load_annotations(cfg.annotations)
+        n_boxes = sum(len(r['boxes']) for r in records)
+        print(f'annotations: {len(records)} images, {n_boxes} boxes')
+        if not records:
+            raise ValueError(f'no annotations in {cfg.annotations}')
 
-    rng = np.random.RandomState(int(cfg.seed or 0))
-    detector = str(cfg.detector or 'mtcnn')
+        rng = np.random.RandomState(int(cfg.seed or 0))
+        detector = str(cfg.detector or 'mtcnn')
 
-    if detector in ('mtcnn', 'pypimtcnn'):
-        params = train_mtcnn(records, cfg, rng, device)
-    elif detector == 'frcnnv3':
-        params = train_frcnn(records, cfg, rng, device)
-    else:
-        raise ValueError(f'unknown detector {detector}')
+        if detector in ('mtcnn', 'pypimtcnn'):
+            params = train_mtcnn(records, cfg, rng, device)
+        elif detector == 'frcnnv3':
+            params = train_frcnn(records, cfg, rng, device)
+        else:
+            raise ValueError(f'unknown detector {detector}')
 
-    out = Path(cfg.model.path) / 'detector_params.npy'
-    np.save(out, params, allow_pickle=True)
-    print(f'Trained {detector} params saved to {out}')
+        out = Path(cfg.model.path) / 'detector_params.npy'
+        np.save(out, params, allow_pickle=True)
+        print(f'Trained {detector} params saved to {out}')
+    finally:
+        logging.remove_file_sink(sink)
     return out
 
 

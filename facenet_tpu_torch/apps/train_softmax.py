@@ -2,7 +2,8 @@
 center and triplet losses).
 
 Database -> shuffled batches (or P x K batches when the triplet loss is on
-or ``sampler: pk``) -> Inception-ResNet-v1 + logits head -> Adam(eps=0.1)
+or ``sampler: pk``) -> the ``model:`` section's network from the model
+zoo (Inception-ResNet-v1 or -v2) + logits head -> Adam(eps=0.1)
 on the piecewise schedule -> a checkpoint with the pipeline's cursor at
 every epoch's end -> validation every ``validate.every_n_epochs`` epochs
 and at the last -> the backbone exported as a model bundle in the run
@@ -23,7 +24,8 @@ import functools
 import math
 from pathlib import Path
 
-from facenet_tpu_torch import callbacks, config, dataset, export, ioutils
+from facenet_tpu_torch import (callbacks, config, dataset, export, ioutils,
+                               logging)
 from facenet_tpu_torch.device import resolve_device
 from facenet_tpu_torch.parallel.mesh import barrier, batch_rows, world
 from facenet_tpu_torch.train.checkpoint import CheckpointManager
@@ -48,9 +50,19 @@ def main(argv=None):
 
 def run(cfg, device=None):
     """The training flow from a prepared config, on the process group's
-    ranks when there is one."""
-    report_file = cfg.logs.dir / 'report.txt'
+    ranks when there is one. The package's log lines go to the run's log
+    file, ``<logs.dir>/<logs.file>``, which rank 0 writes."""
     root = world()[1] == 0
+    sink = logging.configure_logging(cfg.logs) if root else None
+    try:
+        return _train(cfg, device, root)
+    finally:
+        if sink is not None:
+            logging.remove_file_sink(sink)
+
+
+def _train(cfg, device, root):
+    report_file = cfg.logs.dir / 'report.txt'
 
     def log(text):
         if root:

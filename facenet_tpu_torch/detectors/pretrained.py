@@ -27,6 +27,28 @@ BUNDLED = {
 }
 
 
+def save_params(path, params):
+    """Write a nested param dict to a flat npz ('/'-joined keys); returns
+    the path. Tensors are written as numpy arrays."""
+    flat = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            key = f'{prefix}/{k}' if prefix else str(k)
+            if isinstance(v, Mapping):
+                walk(v, key)
+            else:
+                if hasattr(v, 'detach'):
+                    v = v.detach().cpu().numpy()
+                flat[key] = np.asarray(v)
+
+    walk(params, '')
+    path = Path(str(path)).expanduser()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **flat)
+    return path
+
+
 def load_params(path):
     """Read a flat npz into a nested param dict of numpy arrays."""
     out = {}

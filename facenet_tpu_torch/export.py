@@ -1,4 +1,5 @@
-"""Model bundles, read and written in the JAX package's format.
+"""Model bundles in the JAX package's format, the compiled serving
+artifact, and the per-layer activation dump.
 
 A bundle is a directory:
 
@@ -14,6 +15,15 @@ C-order bytes)`` triple; arrays above 1 GiB are split into
 array). ``yaml`` is imported only to read ``model.yaml``; `save_model`
 writes it with `config._yaml_lines`, so exporting needs no yaml. Both
 packages load a bundle either of them wrote.
+
+`save_compiled` writes ``<path>/model.pt2``, the `torch.export` program of
+the fused serving forward that `export_program` makes (the counterpart of
+the JAX package's StableHLO ``model.stablehlo``): uint8 [B, H, W, 3] in,
+L2-normalized float32 [B, D] out, the weights inside, the batch symbolic;
+`load_compiled` runs it,
+and ``torch.export.load`` alone runs it without this package. `export_h5`
+dumps every layer's activations and every weight under the JAX package's
+names.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import numpy as np
 
 MODEL_FILE = 'model.yaml'
 PARAMS_FILE = 'params.msgpack'
+COMPILED_FILE = 'model.pt2'
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -293,3 +304,266 @@ def load_model(path):
 
     variables = msgpack_restore((path / PARAMS_FILE).read_bytes())
     return ModelBundle(variables=variables, meta=meta)
+
+
+def _bundle_of(model_or_bundle):
+    """A `ModelBundle` of a bundle or of an embedding module's weights."""
+    if isinstance(model_or_bundle, ModelBundle):
+        return model_or_bundle
+    model = model_or_bundle
+    return ModelBundle(model.to_flax_variables(), {
+        'model_class': type(model).__name__, 'config': model.config,
+        'image_size': int(model.image_size),
+        'normalization': int(model.normalization)})
+
+
+def _serving_module(forward, params):
+    """An nn.Module running ``forward(params, images)`` whose tensors are
+    its buffers, so that `torch.export` keeps them inside the program."""
+    import torch
+
+    leaves = []
+
+    def split(tree):
+        if isinstance(tree, dict):
+            return {k: split(v) for k, v in tree.items()}
+        if isinstance(tree, torch.Tensor):
+            leaves.append(tree.detach().clone())
+            return _Leaf(len(leaves) - 1)
+        return tree
+
+    skeleton = split(params)
+
+    class Serving(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            for i, leaf in enumerate(leaves):
+                self.register_buffer(f'w{i}', leaf)
+
+        def tree(self, node):
+            if isinstance(node, dict):
+                return {k: self.tree(v) for k, v in node.items()}
+            if isinstance(node, _Leaf):
+                return getattr(self, f'w{node.index}')
+            return node
+
+        def forward(self, images):
+            return forward(self.tree(skeleton), images)
+
+    return Serving()
+
+
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    index: int
+
+
+def export_program(model_or_bundle, quantize=None, calib_images=None,
+                   device=None):
+    """The serving forward as a `torch.export` program on `device` (the GPU
+    by default; 'cpu' on a box without one): the family's fused forward
+    (`irv1_fast` at ``stem='cudnn'``, or `irv2_fast`) in bfloat16, uint8
+    [B, H, W, 3] in, L2-normalized float32 [B, D] out, the folded weights
+    inside, the batch a symbolic dimension (any batch runs without a new
+    export). With ``quantize='int8'`` and `calib_images` (a uint8 batch)
+    it is the int8 serving forward, calibrated on them. `save_compiled`
+    writes it; ``CompiledModel(program, device)`` runs it.
+
+    :param model_or_bundle: a `ModelBundle` or an InceptionResnetV1/V2
+    :raises NotImplementedError: for a model class without a fused forward
+        (the JAX package serializes the plain module there; this port has
+        no plain export and raises, as it does when the fused path fails)
+    """
+    import torch
+    from torch.export import Dim, export
+
+    from facenet_tpu_torch.device import resolve_device
+
+    bundle = _bundle_of(model_or_bundle)
+    device = resolve_device(device)
+    size, norm = bundle.image_size, bundle.normalization
+    options = {'config': bundle.config, 'image_size': size,
+               'normalization': norm, 'device': device,
+               'quantize': quantize, 'calib_images': calib_images}
+    if bundle.model_class == 'InceptionResnetV1':
+        from facenet_tpu_torch.models import irv1_fast as fast
+        embedder = fast.FastEmbedder(bundle.variables, stem='cudnn',
+                                     **options)
+
+        def forward(params, images):
+            return fast.fast_forward(params, embedder.cfg, images, size,
+                                     norm, embedder.dtype, stem='cudnn')
+    elif bundle.model_class == 'InceptionResnetV2':
+        from facenet_tpu_torch.models import irv2_fast as fast
+        embedder = fast.FastEmbedderV2(bundle.variables, **options)
+
+        def forward(params, images):
+            return fast.fast_forward(params, embedder.cfg, images, size,
+                                     norm, embedder.dtype)
+    else:
+        raise NotImplementedError(
+            f'{bundle.model_class} has no fused serving forward to export')
+
+    module = _serving_module(forward, embedder.params)
+    example = torch.zeros((2, size, size, 3), dtype=torch.uint8,
+                          device=device)
+    with torch.inference_mode(False), torch.no_grad():
+        return export(module, (example,), dynamic_shapes={
+            'images': {0: Dim('batch', min=1, max=1 << 16)}})
+
+
+def save_compiled(path, model_or_bundle, quantize=None, calib_images=None,
+                  device=None):
+    """Write `export_program`'s program, traced on `device`, as
+    ``<path>/model.pt2`` and return its path. It is stored with its
+    weights on the CPU; `load_compiled` moves it to the device it runs
+    on."""
+    import torch
+    from torch.export.passes import move_to_device_pass
+
+    program = move_to_device_pass(
+        export_program(model_or_bundle, quantize, calib_images, device),
+        'cpu')
+    path = Path(str(path)).expanduser()
+    path.mkdir(parents=True, exist_ok=True)
+    artifact = path / COMPILED_FILE
+    torch.export.save(program, str(artifact))
+    return artifact
+
+
+class CompiledModel:
+    """A `save_compiled` program loaded on one device (or an
+    `export_program` program on its own): callable with a uint8 [B, H, W,
+    3] batch (numpy or tensor), returning the [B, D] float32 embeddings as
+    a tensor on that device."""
+
+    def __init__(self, program, device):
+        self.program = program
+        self.device = device
+        self._module = program.module()
+
+    @classmethod
+    def load(cls, path, device=None):
+        """:param device: where the program runs; None is the GPU (raises
+            without one), as for every entry point"""
+        import torch
+        from torch.export.passes import move_to_device_pass
+
+        from facenet_tpu_torch.device import resolve_device
+
+        device = resolve_device(device)
+        path = Path(str(path)).expanduser()
+        if path.is_dir():
+            path = path / COMPILED_FILE
+        program = torch.export.load(str(path))
+        return cls(move_to_device_pass(program, str(device)), device)
+
+    def __call__(self, images):
+        import torch
+        images = torch.as_tensor(np.asarray(images, np.uint8)
+                                 if not isinstance(images, torch.Tensor)
+                                 else images)
+        with torch.no_grad():
+            return self._module(images.to(self.device, non_blocking=True))
+
+    @property
+    def platforms(self):
+        return (self.device.type,)
+
+    def graph(self):
+        """The exported graph's code as text (the counterpart of the JAX
+        package's StableHLO text)."""
+        return self.program.graph_module.print_readable(print_output=False)
+
+    def op_histogram(self):
+        """Occurrences of each aten op in the exported graph, most frequent
+        first ('conv2d', 'relu', ...; the reference's frozen-graph op
+        listing)."""
+        import torch
+        hist = {}
+        for node in self.program.graph.nodes:
+            if node.op == 'call_function' and isinstance(
+                    node.target, torch._ops.OpOverload):
+                name = node.target.overloadpacket.__name__
+                hist[name] = hist.get(name, 0) + 1
+        return dict(sorted(hist.items(), key=lambda kv: -kv[1]))
+
+
+def load_compiled(path, device=None):
+    """Load a program `save_compiled` wrote (`CompiledModel.load`)."""
+    return CompiledModel.load(path, device)
+
+
+def _walk(tree, prefix, sink):
+    for key, item in tree.items():
+        name = f'{prefix}/{key}' if prefix else str(key)
+        if isinstance(item, dict):
+            _walk(item, name, sink)
+        else:
+            sink(name, np.asarray(item))
+
+
+def export_h5(h5file, model, variables, images):
+    """Dump per-layer activations, every weight and BatchNorm statistic
+    and the input to an h5 file, under the JAX package's names:
+    ``activations/<flax path>/__call__/0`` (each named submodule's output,
+    the conv and bn inside each ConvBnRelu and the blocks' own outputs
+    included, and the model's output as ``activations/__call__/0``),
+    ``weights/<flax path>``, ``batch_stats/<flax path>`` and ``input``.
+
+    `variables` (a flax-layout numpy tree) is loaded into `model` (an
+    InceptionResnetV1 or V2 of this package) and the forward runs at
+    inference in bfloat16 (the JAX modules' compute dtype) on the model's
+    device; activations are written as float32 in NHWC, as the JAX package
+    writes them. An Inception-ResNet-v2 dump lacks the JAX module's
+    ``dropout`` entry (the identity at inference): the port's network has
+    no dropout submodule.
+    """
+    import torch
+
+    from facenet_tpu_torch import h5utils
+    from facenet_tpu_torch.models.inception_resnet_v1 import _Flax
+
+    h5file = Path(str(h5file)).expanduser()
+    model.from_flax_variables(variables)
+    device = next(model.parameters()).device
+    captured, handles = {}, []
+
+    def hook(name):
+        def record(module, args, output):
+            captured[name] = output.detach()
+        return record
+
+    def attach(module, prefix):
+        for name, child in module.named_flax_children():
+            path = f'{prefix}/{name}' if prefix else name
+            handles.append(child.register_forward_hook(hook(path)))
+            if isinstance(child, _Flax):
+                attach(child, path)
+
+    attach(model, '')
+    images = np.asarray(images)
+    try:
+        with torch.no_grad():
+            out = model(torch.from_numpy(images).to(device),
+                        dtype=torch.bfloat16)
+    finally:
+        for handle in handles:
+            handle.remove()
+    captured[''] = out
+
+    def nhwc(t):
+        t = t.float()
+        return (t.permute(0, 2, 3, 1) if t.ndim == 4 else t).cpu().numpy()
+
+    for name, value in captured.items():
+        key = f'{name}/__call__/0' if name else '__call__/0'
+        h5utils.write(h5file, f'activations/{key}', nhwc(value))
+
+    def write(name, arr):
+        h5utils.write(h5file, name, arr)
+
+    _walk(variables['params'], 'weights', write)
+    _walk(variables['batch_stats'], 'batch_stats', write)
+    h5utils.write(h5file, 'input', images)
+    return h5file

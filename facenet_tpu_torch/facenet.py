@@ -1,5 +1,6 @@
 """Batch embedding evaluation over a dataset (on one rank, or split over a
-grid's data ranks), and the stored-embeddings loader."""
+grid's data ranks), the stored-embeddings loader, and an example input
+(`inputs`)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,12 @@ from facenet_tpu_torch.dataset import (  # noqa: F401  (the reference's name)
     equal_batches_input_pipeline)
 from facenet_tpu_torch.logging import logger
 from facenet_tpu_torch.statistics import split_embeddings
+
+
+def inputs(config):
+    """A zeros uint8 [1, size, size, 3] example input for an image config
+    (``config.size``)."""
+    return np.zeros((1, int(config.size), int(config.size), 3), np.uint8)
 
 
 def renormalized(embeddings):

@@ -84,3 +84,38 @@ def filename2key(filename, key):
 def keys(file):
     with _open(file, 'r') as f:
         return list(f.keys())
+
+
+def write_image(file, name, image, mode='a', check_name=True):
+    """Store a uint8 image; refuses to overwrite unless check_name=False."""
+    with _open(file, mode) as f:
+        exists = name in f
+        if exists and check_name:
+            raise IOError(f'data set {name} has already existed')
+        if exists:
+            f[name][...] = image
+        else:
+            f.create_dataset(name=name, data=image, dtype='uint8',
+                             compression='gzip', compression_opts=9)
+
+
+def visit(file, func=print):
+    """Call `func` on the name of every group and dataset in the file."""
+    with _open(file, 'r') as f:
+        f.visit(func)
+
+
+def visititems(file, func=None):
+    """Walk every object of the file with ``func(name, obj)``; with no
+    func, return ``[{'name', 'shape', 'type'}, ...]`` of its datasets."""
+    import h5py
+
+    collected = []
+    if func is None:
+        def func(name, obj):
+            if isinstance(obj, h5py.Dataset):
+                collected.append({'name': name, 'shape': obj.shape,
+                                  'type': obj.dtype})
+    with _open(file, 'r') as f:
+        f.visititems(func)
+    return collected

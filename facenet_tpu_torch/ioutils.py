@@ -33,6 +33,30 @@ def makedirs(p):
     Path(str(p)).expanduser().mkdir(parents=True, exist_ok=True)
 
 
+def glob_single_file(directory, pattern):
+    """The unique file matching `pattern` under `directory`, or ValueError."""
+    matches = sorted(Path(str(directory)).expanduser().glob(pattern))
+    if len(matches) != 1:
+        raise ValueError(
+            f'expected exactly one match for {pattern!r} in {directory}, '
+            f'found {len(matches)}')
+    return matches[0]
+
+
+def pil2array(image, mode='RGB'):
+    """PIL image -> numpy uint8 array in the requested channel order."""
+    return np.asarray(image.convert(mode.upper()))
+
+
+def array2pil(image, mode='RGB'):
+    """Numpy HWC array -> PIL RGB image; `mode` names the array's channel
+    order (a 'BGR' array is reordered into RGB)."""
+    from PIL import Image
+    order = [mode.upper().index(c) for c in 'RGB']
+    return Image.fromarray(np.ascontiguousarray(np.asarray(image)[..., order]),
+                           mode='RGB')
+
+
 def read_image(file):
     """Decode an image file to a uint8 RGB array (IOError if unreadable)."""
     from PIL import Image
@@ -54,6 +78,59 @@ def write_image(image, filename):
         image.convert('RGB').save(path)
     except Exception as exc:
         raise IOError(f'cannot write image {path}: {exc}') from exc
+
+
+class ImageLoader:
+    """Restartable iterator over image files yielding uint8 RGB arrays.
+
+    Accepts a directory (its files, sorted) or a list of files; `filename`
+    is the file of the most recent image and `size` the number of files.
+    Every `display` images it prints (or logs, with ``log=True``) the
+    count and the rate.
+    """
+
+    def __init__(self, source, prefix=None, display=100, log=False):
+        if isinstance(source, (list, tuple)):
+            self.files = [_as_path(f, prefix) for f in source]
+        else:
+            root = _as_path(source)
+            if not root.is_dir():
+                raise IOError(f'not a directory or file list: {source}')
+            self.files = sorted(p for p in root.glob('*') if p.is_file())
+
+        self.display = display
+        self.log = log
+        self.size = len(self.files)
+        self.start_time = time.time()
+        self.filename = None
+        self._cursor = 0
+
+    def __len__(self):
+        return self.size
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._cursor >= self.size:
+            raise StopIteration
+        path = self.files[self._cursor]
+        self._cursor += 1
+        self.filename = str(path)
+        if self.display and self._cursor % int(self.display) == 0:
+            elapsed = time.time() - self.start_time
+            info = (f'{self._cursor}/{self.size} images '
+                    f'({self._cursor / max(elapsed, 1e-9):.1f} img/s)')
+            if self.log:
+                from facenet_tpu_torch.logging import logger
+                logger.info(info)
+            else:
+                print(info, flush=True)
+        return read_image(path)
+
+    def reset(self):
+        self._cursor = 0
+        return self
 
 
 def write_to_file(file, text, mode='w'):
@@ -112,6 +189,14 @@ def _run_git(*args):
         return f'git {" ".join(args)} failed: {exc}'
 
 
+def git_hash():
+    return _run_git('rev-parse', 'HEAD')
+
+
+def git_diff():
+    return _run_git('diff', 'HEAD')
+
+
 def provenance():
     """Everything needed to reproduce a run, as an ordered dict of lines."""
     import platform
@@ -123,8 +208,8 @@ def provenance():
         'python version': sys.version,
         'torch version': torch.__version__,
         'arguments': ' '.join(sys.argv),
-        'git hash': _run_git('rev-parse', 'HEAD'),
-        'git diff': _run_git('diff', 'HEAD'),
+        'git hash': git_hash(),
+        'git diff': git_diff(),
     }
 
 

@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from facenet_tpu_torch.config import Config
+from facenet_tpu_torch.config import Config, value_or
 from facenet_tpu_torch.ops.preprocessing import image_processing
 from facenet_tpu_torch.parallel.mesh import group_size, sum_over
 
@@ -222,8 +222,9 @@ class BatchNorm(nn.Module):
     """Center-only BatchNorm over axis 1: running statistics at inference,
     the batch's in training (see the module docstring).
 
-    `update_running` false keeps the running statistics as they are in a
-    train-mode forward (a recomputing backward sets it, so that one step
+    `momentum` is the running statistics' decay (0.99 here, 0.995 in
+    Inception-ResNet-v2). `update_running` false keeps the running
+    statistics as they are in a train-mode forward (a recomputing backward sets it, so that one step
     moves them once).
 
     `group` (a data group of the process grid, None on one rank) makes the
@@ -231,8 +232,9 @@ class BatchNorm(nn.Module):
     The recomputing forward then reuses the sums of the step's first
     forward instead of reducing them a second time."""
 
-    def __init__(self, features):
+    def __init__(self, features, momentum=BN_MOMENTUM):
         super().__init__()
+        self.momentum = float(momentum)
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer('mean', torch.zeros(features))
         self.register_buffer('var', torch.ones(features))
@@ -251,11 +253,10 @@ class BatchNorm(nn.Module):
                                                           reuse)
                 self._sums = sums.detach()
             if self.update_running:
+                m = self.momentum
                 with torch.no_grad():
-                    self.mean.copy_(BN_MOMENTUM * self.mean
-                                    + (1 - BN_MOMENTUM) * mean)
-                    self.var.copy_(BN_MOMENTUM * self.var
-                                   + (1 - BN_MOMENTUM) * var)
+                    self.mean.copy_(m * self.mean + (1 - m) * mean)
+                    self.var.copy_(m * self.var + (1 - m) * var)
         else:
             mean, var = self.mean, self.var
         scale = torch.rsqrt(var + BN_EPS)
@@ -322,12 +323,12 @@ class ConvBnRelu(_Flax):
     """Conv (no bias) -> BatchNorm(center, no scale) -> optional ReLU."""
 
     def __init__(self, cin, cout, kernel=(3, 3), stride=1, padding='SAME',
-                 relu=True):
+                 relu=True, momentum=BN_MOMENTUM):
         super().__init__()
         self.relu = relu
         self.cout = cout
         self.child('conv', Conv(cin, cout, kernel, stride, padding))
-        self.child('bn', BatchNorm(cout))
+        self.child('bn', BatchNorm(cout, momentum))
 
     def forward(self, x, train=False):
         x = self.bn(self.conv(x), train)
@@ -540,16 +541,34 @@ class InceptionResnetV1(_Flax):
             x = x / norm
         return x
 
+    @property
+    def embedding_size(self):
+        return int(self.cfg.output.size)
+
     def from_flax_variables(self, variables):
         """Load a flax ``{'params', 'batch_stats'}`` tree of numpy arrays."""
         self.load_flax(variables['params'], variables['batch_stats'])
         return self
 
 
+def create_model(model_cfg=None, image_cfg=None, dtype=None):
+    """An InceptionResnetV1 from the model zoo's config objects: the
+    topology dict and the ``image`` section (size 160, normalization 0 by
+    default). `dtype` is accepted for the zoo's signature and not stored:
+    the port picks the compute dtype at each call (``forward(dtype=...)``,
+    else the weights' dtype)."""
+    image_cfg = image_cfg or Config({'size': 160, 'normalization': 0})
+    return InceptionResnetV1(
+        config=model_cfg, image_size=int(image_cfg.size or 160),
+        # normalization 0 is a mode of its own, so no `or`
+        normalization=int(value_or(image_cfg.normalization, 0)))
+
+
 def l2_regularization(module, weight_decay=WEIGHT_DECAY):
     """weight_decay * sum(w ** 2) over every conv and dense kernel under
     `module` (the leaves a flax tree names 'kernel'; biases and BatchNorm
-    excluded), in float32."""
+    excluded), in float32; either Inception-ResNet family, head included
+    when `module` holds one."""
     return weight_decay * torch.stack(
         [m.weight.float().square().sum() for m in module.modules()
          if isinstance(m, (Conv, Dense))]).sum()

@@ -95,7 +95,7 @@ def patch_rows(xq, shape, stride=1, padding='SAME'):
     `quantized_entry`'s matrix."""
     _, _, kh, kw = shape
     _check(shape, stride, padding)
-    if padding == 'SAME':
+    if padding == 'SAME' and (kh > 1 or kw > 1):
         ph, pw = kh - 1, kw - 1
         xq = F.pad(xq, (0, 0, pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
     b, h, w, c = xq.shape
@@ -118,15 +118,25 @@ def int8_sums(xq, w, stride=1, padding='SAME'):
     """int32 sums [B, OH, OW, oc] of int8 NHWC `xq` with the entry's kernel,
     through ``torch._int_mm`` (on the CPU too, where torch has it). Rows
     and columns are zero-padded to what cuBLASLt takes; zeros change no
-    sum."""
+    sum. Inside `torch.export`, where the batch is symbolic, a conv whose
+    output has fewer than `MIN_ROWS` pixels an image always gets
+    `MIN_ROWS` more rows."""
     rows, (b, oh, ow) = patch_rows(xq, w['shape'], stride, padding)
     m, k = rows.shape
     kp = w['kq'].shape[1]
-    if k != kp or m < MIN_ROWS:
-        rows = F.pad(rows, (0, kp - k, 0, max(MIN_ROWS - m, 0)))
+    if torch.compiler.is_exporting():
+        # the batch, and so m, is symbolic in an exported program: the
+        # rows get MIN_ROWS more wherever one image has fewer than that
+        extra = MIN_ROWS if oh * ow < MIN_ROWS else 0
+    else:
+        extra = max(MIN_ROWS - m, 0)
+    if k != kp or extra:
+        rows = F.pad(rows, (0, kp - k, 0, extra))
     y = torch._int_mm(rows, w['kq'].t())
     oc = w['shape'][0]
-    return y[:m, :oc].view(b, oh, ow, oc)
+    if extra or y.shape[1] != oc:     # no slice (a graph node) otherwise
+        y = y[:m, :oc]
+    return y.view(b, oh, ow, oc)
 
 
 def int8_sums_plain(xq, w, stride=1, padding='SAME'):

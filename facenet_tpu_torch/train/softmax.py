@@ -1,4 +1,5 @@
-"""Softmax (+ center / triplet) embedding training of Inception-ResNet-v1.
+"""Softmax (+ center / triplet) embedding training of the model zoo's
+networks (Inception-ResNet-v1 or -v2, `models.create_model_from_config`).
 
 The backbone with a Dense logits head over the identity classes, sparse
 softmax cross-entropy weighted by ``loss.softmax_factor``, L2(5e-4) on
@@ -18,7 +19,9 @@ moments and the centers in float64 and computes in float64 (a reference
 run: the losses keep their float32 casts, as JAX's float64 run does).
 
 One step: optional random crop / flip of the uint8 batch (draws from the
-state's torch.Generator), forward in train mode (BatchNorm on the batch's
+state's torch.Generator), Inception-ResNet-v2's dropout mask for the
+batch (drawn next from the same generator, when its keep probability is
+below 1), forward in train mode (BatchNorm on the batch's
 statistics, running statistics moved once), the losses, backward, Adam at
 ``schedule(step)``, the centers table replaced by its update. With
 ``train.remat`` the backbone runs under torch.utils.checkpoint, so the
@@ -41,9 +44,9 @@ does on the whole row, which put a float64 step on the (1, 2) grid 1.1e-6
 to 1.4e-6 of a leaf's update away from the single device's; on the whole
 rows the loss's arithmetic is the single device's. The rows cost
 B x C float32 a rank, against the C x D weights and Adam's moments that
-stay split.) The augmentation draws are
+stay split.) The augmentation draws and the dropout mask are
 made for the global batch from the same generator on every rank, which
-crops and flips its own rows.
+crops, flips and drops on its own rows.
 
 The gradient's scale: each rank differentiates its own share of the loss,
 so that the shares of the data ranks add up to `data` times the global
@@ -81,6 +84,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from facenet_tpu_torch import models
 from facenet_tpu_torch.config import Config, value_or
 from facenet_tpu_torch.device import resolve_device
 from facenet_tpu_torch.logging import logger
@@ -99,33 +103,10 @@ from facenet_tpu_torch.utils import profiling
 
 
 def create_backbone(model_cfg=None, image_cfg=None):
-    """The Inception-ResNet-v1 a train config selects.
-
-    `model_cfg` is the ``model:`` section ({'module': ..., 'config':
-    {...}}) or a bare topology dict; a module other than
-    inception_resnet_v1 raises NotImplementedError (the port trains
-    Inception-ResNet-v1 only)."""
-    if model_cfg is not None and not isinstance(model_cfg, Config):
-        model_cfg = Config(model_cfg)
-    net_cfg = None
-    if model_cfg:
-        if model_cfg.module:
-            module = str(model_cfg.module).rsplit('.', 1)[-1]
-            if module != 'inception_resnet_v1':
-                raise NotImplementedError(
-                    f'training {model_cfg.module} is not ported; the PyTorch '
-                    'port trains inception_resnet_v1 only')
-            net_cfg = model_cfg.config.as_dict if model_cfg.config else None
-        elif model_cfg.config:
-            net_cfg = model_cfg.config.as_dict
-        else:
-            # a bare topology dict; run-dir keys ride along in cfg.model
-            net_cfg = {k: v for k, v in model_cfg.as_dict.items()
-                       if k not in ('path', 'checkpoint', 'weights')} or None
-    image_cfg = image_cfg or Config({'size': 160, 'normalization': 0})
-    return irv1.InceptionResnetV1(
-        config=net_cfg, image_size=int(image_cfg.size or 160),
-        normalization=int(value_or(image_cfg.normalization, 0)))
+    """The zoo network a train config selects: `model_cfg` is the
+    ``model:`` section ({'module': ..., 'config': {...}}), a zoo name, or
+    a bare topology dict (Inception-ResNet-v1, as is no config)."""
+    return models.create_model_from_config(model_cfg, image_cfg=image_cfg)
 
 
 class SoftmaxClassifier(nn.Module):
@@ -154,18 +135,28 @@ class SoftmaxClassifier(nn.Module):
         self.parts = parts
         self.part = mesh.model_index if parts > 1 else 0
         self.model_group = mesh.model_group if parts > 1 else None
-        self.logits = irv1.Dense(int(backbone.cfg.output.size),
+        self.logits = irv1.Dense(backbone.embedding_size,
                                  self.nrof_classes // parts, bias=True)
 
     @property
     def sharded(self):
         return self.parts > 1
 
-    def forward(self, images, train=False, dtype=torch.bfloat16):
-        """-> (logits [B, C / model] float32, prelogits [B, D] float32)."""
-        prelogits = self.backbone(images, train=train, normalize=False,
-                                  dtype=dtype)
+    def forward(self, images, train=False, dtype=torch.bfloat16,
+                dropout=None):
+        """-> (logits [B, C / model] float32, prelogits [B, D] float32).
+
+        :param dropout: the backbone's dropout mask (an
+            Inception-ResNet-v2 in training), None for none"""
+        prelogits = self.backbone_forward(images, train, dtype, dropout)
         return self.head(prelogits, dtype), prelogits
+
+    def backbone_forward(self, images, train=False, dtype=torch.bfloat16,
+                         dropout=None):
+        """The unnormalized bottleneck [B, D] float32."""
+        extra = {} if dropout is None else {'dropout': dropout}
+        return self.backbone(images, train=train, normalize=False,
+                             dtype=dtype, **extra)
 
     def head(self, prelogits, dtype=torch.bfloat16):
         x = copy_to_model(prelogits.to(dtype), self.model_group)
@@ -177,7 +168,7 @@ class SoftmaxClassifier(nn.Module):
         {'backbone'}}`` drawn from numpy's RandomState."""
         rng = np.random.RandomState(seed)
         params, stats = self.backbone.flax_variables(rng)
-        dim = int(self.backbone.cfg.output.size)
+        dim = self.backbone.embedding_size
         head = {'kernel': irv1.glorot_uniform(rng, (dim, self.nrof_classes)),
                 'bias': np.zeros((self.nrof_classes,), np.float32)}
         return {'params': {'backbone': params, 'logits': head},
@@ -338,13 +329,13 @@ def make_train_step(schedule, loss_cfg, augment_cfg=None, image_size=160,
     n_data = group_size(data_group)
     data_index = mesh.data_index if n_data > 1 else 0
 
-    def forward(model, images):
+    def forward(model, images, mask):
         if not remat:
-            return model(images, train=train, dtype=dtype)
+            return model(images, train=train, dtype=dtype, dropout=mask)
         backbone = model.backbone
         # the recompute must not move the running statistics a second time
         prelogits = checkpoint(
-            lambda x: backbone(x, train=train, normalize=False, dtype=dtype),
+            lambda x: model.backbone_forward(x, train, dtype, mask),
             images, use_reentrant=False,
             context_fn=lambda: (contextlib.nullcontext(),
                                 running_stats_frozen(backbone)))
@@ -364,8 +355,16 @@ def make_train_step(schedule, loss_cfg, augment_cfg=None, image_size=160,
                           for d in draws), crop_size=image_size)
         labels = labels.long()
         model = state.model
+        mask = None
+        if train and hasattr(model.backbone, 'dropout_mask'):
+            # the global batch's mask, this rank's rows of it
+            b = images.shape[0]
+            mask = model.backbone.dropout_mask(b * n_data, state.generator)
+            if mask is not None:
+                lo = data_index * b
+                mask = mask[lo:lo + b].to(images.device, non_blocking=True)
 
-        logits, prelogits = forward(model, images)
+        logits, prelogits = forward(model, images, mask)
         if model.sharded:
             # the whole rows of logits, so that the loss and the argmax
             # are log_softmax's and argmax's own arithmetic on them
@@ -477,8 +476,7 @@ class SoftmaxTrainer:
         irv1.set_batch_group(backbone, self.mesh.data_group)
 
         center_factor = float(self.cfg.loss.center_factor or 0.0)
-        centers = (torch.zeros(self.nrof_classes,
-                               int(backbone.cfg.output.size),
+        centers = (torch.zeros(self.nrof_classes, backbone.embedding_size,
                                device=self.device, dtype=master)
                    if center_factor > 0 else None)
         optimizer = torch.optim.Adam(model.parameters(),
@@ -592,7 +590,8 @@ class SoftmaxTrainer:
 
         :param frozen_bn: run this epoch with running-statistics forwards
         :return: (state, metrics of the last step as floats, with
-            epoch_time_s, steps and img_per_s)
+            epoch_time_s, steps and img_per_s); ``self.timer`` is the
+            epoch's `StepTimer` (host-issued step times)
         """
         prefetch = int(value_or(self.cfg.train.prefetch, 2))
         batches = itertools.islice(iter(batches), self.steps_per_epoch)
@@ -604,11 +603,14 @@ class SoftmaxTrainer:
             num_steps=value_or(prof.num_steps if prof else None, 5))
         step = self.frozen_bn_step_fn if frozen_bn else self.step_fn
 
+        timer = profiling.StepTimer(name=f'epoch {epoch} step')
         t0 = time.monotonic()
         metrics, n, seen = None, 0, 0
         for size, images, labels in self._placed_batches(batches, prefetch):
             window.step(epoch, n)
-            state, metrics = step(state, images, labels)
+            timer.items_per_step = size
+            with timer:
+                state, metrics = step(state, images, labels)
             n += 1
             seen += size
             if log_every and n % log_every == 0:
@@ -617,6 +619,7 @@ class SoftmaxTrainer:
                     ' '.join(f'{k}={float(v):.4f}'
                              for k, v in metrics.items()))
         window.close()
+        self.timer = timer
 
         # reading the last metrics waits for the epoch's device work
         m = {k: float(v) for k, v in (metrics or {}).items()}

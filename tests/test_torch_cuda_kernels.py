@@ -683,3 +683,60 @@ def test_frcnn_train_step_on_the_card_matches_the_cpu():
     for k, v in cpu.items():
         assert card[k] == pytest.approx(v, rel=1e-4), k
     assert worst <= 1e-3
+
+
+TINY_V2 = {'repeat': [1, 1, 1], 'embedding_size': 32}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('keep', [1.0, 0.5])
+def test_irv2_train_step_on_the_card_matches_the_cpu(keep):
+    """chip_smoke phase 43 at TINY width: one float64 IRv2 softmax step
+    with TF32 off on the card and on the CPU, through `step_on_devices`.
+    Both draw the dropout mask from the state's generator on the host, so
+    the keep-0.5 step is the same step on both: the metrics at rtol 1e-5,
+    every leaf within 1e-5 of its update + 1e-12."""
+    from facenet_tpu_torch.config import Config
+    from facenet_tpu_torch.train.softmax import step_on_devices
+
+    _gpu()
+    cfg = Config({'image': {'size': 160},
+                  'train': {'epoch': {'size': 1},
+                            'learning_rate': {'value': 1e-3}},
+                  'loss': {'center_factor': 0.0, 'triplet_factor': 0.0}})
+    (card, cpu), worst, _ = step_on_devices(
+        cfg, 4, *_train_batch(8, 4),
+        model_cfg={'module': 'inception_resnet_v2',
+                   'config': dict(TINY_V2, keep_probability=keep)},
+        dtype=torch.float64, atol=1e-12)
+    for key in cpu:
+        np.testing.assert_allclose(card[key], cpu[key], rtol=1e-5,
+                                   atol=1e-12, err_msg=key)
+    assert worst <= 1e-5, worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('quantize', [None, 'int8'])
+def test_compiled_artifact_on_the_card_matches_the_cpu(tmp_path, quantize):
+    """An artifact exported on the card runs on the CPU and one exported
+    on the CPU runs on the card; the four runs agree at cosine >= 0.999
+    (bf16 convolutions of two libraries; int8 sums are exact)."""
+    from facenet_tpu_torch import export
+
+    _gpu()
+    bundle = export.ModelBundle(init_variables(TINY, seed=0), {
+        'model_class': 'InceptionResnetV1', 'config': TINY,
+        'image_size': 160, 'normalization': 0})
+    rng = np.random.RandomState(0)
+    calib = rng.randint(0, 256, (8, 160, 160, 3), np.uint8)
+    images = rng.randint(0, 256, (3, 160, 160, 3), np.uint8)
+    outs = []
+    for made in ('cuda', 'cpu'):
+        path = export.save_compiled(tmp_path / made, bundle,
+                                    quantize=quantize, calib_images=calib,
+                                    device=made)
+        for run in ('cuda', 'cpu'):
+            outs.append(export.load_compiled(path, device=run)(images)
+                        .float().cpu().numpy())
+    for got in outs[1:]:
+        assert (got * outs[0]).sum(axis=1).min() >= 0.999

@@ -67,7 +67,9 @@ def test_port_imports_no_jax_and_no_facenet_tpu():
                  'train.classifier', 'apps.train_classifier',
                  'detectors.frcnn', 'detectors.frcnn.network',
                  'detectors.frcnn.detector', 'train.mtcnn',
-                 'apps.train_detector'):
+                 'apps.train_detector', 'models', 'models.import_weights',
+                 'utils.profiling', 'utils.debug', 'apps.export_model',
+                 'apps.model_info', 'apps.dataset'):
         assert f'facenet_tpu_torch.{name}' in result['names'], name
 
 
