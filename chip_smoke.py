@@ -281,12 +281,47 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      from the trace, the step's device busy time and img/s at it, its
      launches and its top 10 kernels.
      No hand-written kernel lies on the paths of 41-44 either.
+ 45. the port's native image library (facenet_tpu_torch/native): the
+     probe (g++ and the headers it includes) is printed on an early line;
+     where the headers are there the library must build, and then
+     letterbox_array equals the numpy restatement (letterbox.py) at max
+     |d| = 0 on sizes with 1-pixel sides, and a PNG written here with zlib
+     decodes to the written array; where they are not, the build's error
+     is printed and the file phases below decode with PIL;
+ 46. validate from files: 2,000 250x250 JPEGs (LFW's file size) in 100
+     identity folders -> Database -> BatchLoader(ImageLoader(160)) ->
+     phase 4's FaceNet -> evaluate_embeddings -> 10-fold
+     FaceToFaceValidation, with the launch counts and the library's row
+     count reset just before and read just after: exactly 30 B1 launches;
+     the rows in order at cosine >= 0.99999 to FaceNet on the same files
+     decoded one by one; the rows went through the library where it is
+     built and none did where it is not; the loader's img/s alone and the
+     chain's as issued, beside phase 18's;
+ 47. train from files: PKPipeline (20 x 5) over the same tree feeding
+     SoftmaxTrainer (full-width IRv1, the 8,631-way head, bf16, batch
+     100) for 20 steps: the cross-entropy falling, no kernel launch, the
+     row count as in 46; the loader's img/s alone, the steps' img/s from
+     files beside phase 25's in memory, the loader's wait a step;
+ 48. detect from files: 32 of phase 10's scenes as 480x640 JPEGs and 32
+     540x720 scenes upscaled to 1080x1440 JPEGs (decoded at libjpeg's DCT
+     scale 1/2) through FaceDetector(image_shapes=[480x640, 540x720])
+     .detect_files in batches of 16 (two deep): exactly 4 B3 launches (two
+     batches a bucket); the faces, boxes (2 px after rounding) and scores
+     (0.02) of the cascade run one batch at a time on the same decoded
+     canvases, IoU-matched; scenes/s, the decode ms of a batch beside the
+     cascade's; then FacePipeline.process_files (align='landmarks') on the
+     480x640 half in batches of 8: exactly 4 B3 and 4 B2 launches, the
+     valid slots and embeddings (cosine >= 0.999) of process_batch on the
+     decoded scenes; scenes/s. Each file phase prints which decoder ran.
 
-The GPU machine may lack PIL, yaml, h5py, sklearn and click, so nothing
-here imports them at module level: the model bundle is built in memory,
-images and scenes are numpy arrays, and phases 18-20 hand the port's
-loaders arrays through a callable instead of decoding files; phase 41
-takes the in-memory form of the h5 import when h5py is missing.
+The GPU machine may lack yaml, h5py, sklearn and click, so nothing here
+imports them at module level: the model bundle is built in memory, and
+phase 41 takes the in-memory form of the h5 import when h5py is missing.
+Phases 18-20 hand the port's loaders arrays through a callable; phases
+45-48 write files and decode them, through the native library where it
+builds and through PIL where it does not (PIL is imported only where a
+file is written or decoded; without it the files are PNGs written with
+zlib).
 
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -311,6 +346,9 @@ H100_TF32_FLOPS = 495e12    # dense TF32 tensor cores, H100 SXM
 H100_INT8_OPS = 1979e12     # dense int8 tensor cores, H100 SXM
 H100_HBM_BYTES = 3.35e12    # HBM3 bytes/s, H100 SXM
 SCENE = (480, 640)          # the cascade's default geometry
+# the second bucket of phase 48: 1080x1440 files letterbox into it at 1/2,
+# so libjpeg decodes them at its DCT scale 1/2
+BIG_SCENE = (540, 720)
 ROTATE = 6                  # B2 input copies: 6 x 22 MB, past the 50 MB L2
 
 
@@ -1473,6 +1511,7 @@ def slice7_phases(rng, context):
           f'kernel launches {counts}')
     print(f'  {wall:.3f} s = {n / wall:.1f} embeddings/s as issued; the '
           f'loader alone {loader_s:.3f} s ({loader_s / wall:.3f} of it)')
+    context.update(extract_rate=n / wall, extract_loader_rate=n / loader_s)
 
     # 19. pipeline mode on the card
     print('[19] the embeddings app\'s pipeline mode: FacePipeline '
@@ -3123,6 +3162,366 @@ def _slice12(rng, context, work):
     print(f'  phases 41-44: {time.monotonic() - started:.1f} s')
 
 
+def write_png(path, image):
+    """uint8 [H, W, 3] -> an 8-bit RGB PNG, with zlib and struct alone
+    (the card's machine may have no PIL)."""
+    import struct
+    import zlib
+
+    def chunk(kind, data):
+        return (struct.pack('>I', len(data)) + kind + data
+                + struct.pack('>I', zlib.crc32(kind + data) & 0xffffffff))
+
+    h, w = image.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(image).reshape(h, w * 3)],
+                          axis=1)
+    Path(path).write_bytes(
+        b'\x89PNG\r\n\x1a\n'
+        + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0))
+        + chunk(b'IDAT', zlib.compress(rows.tobytes(), 1))
+        + chunk(b'IEND', b''))
+
+
+def write_image_file(stem, image, quality=90):
+    """A JPEG where PIL can write one, else a PNG (`write_png`); returns
+    the path."""
+    try:
+        from PIL import Image
+    except ImportError:
+        path = Path(f'{stem}.png')
+        write_png(path, image)
+        return path
+    path = Path(f'{stem}.jpg')
+    Image.fromarray(image).save(path, quality=quality)
+    return path
+
+
+def native_probe():
+    """One line: g++ and the headers the native image library includes."""
+    import subprocess
+    try:
+        version = subprocess.run(['g++', '--version'], capture_output=True,
+                                 text=True, timeout=60).stdout.splitlines()[0]
+    except (OSError, IndexError):
+        return 'g++ not found', False
+    # imageio.cc's includes, in its order (jpeglib.h needs stdio's FILE)
+    check = subprocess.run(
+        ['g++', '-fsyntax-only', '-x', 'c++', '-'],
+        input='#include <cstdio>\n#include <jpeglib.h>\n#include <png.h>\n'
+              '#include <zlib.h>\n',
+        capture_output=True, text=True, timeout=60)
+    found = check.returncode == 0
+    errors = [line.split('error:')[-1].strip()
+              for line in check.stderr.splitlines() if 'error:' in line]
+    return (f'{version}; jpeglib.h, png.h, zlib.h '
+            f'{"found" if found else "not found: " + errors[0]}'), found
+
+
+def face_files(rng, root, n_classes, per_class, size=250):
+    """`n_classes` identity folders of `per_class` face-sized files: a
+    smooth base image an identity, a smooth field and noise an image."""
+    def smooth(n, cells):
+        low = rng.integers(0, 256, (n, cells, cells, 3)).astype(np.int16)
+        up = np.repeat(np.repeat(low, size // cells + 1, 1),
+                       size // cells + 1, 2)
+        return up[:, :size, :size]
+
+    base = smooth(n_classes, 10)
+    noise = rng.integers(-6, 7, (16, size, size, 3)).astype(np.int16)
+    files, labels = [], []
+    for c in range(n_classes):
+        folder = Path(root) / f'id_{c:04d}'
+        folder.mkdir()
+        shade = smooth(per_class, 5) // 8 - 16
+        for i in range(per_class):
+            img = np.clip(base[c] + shade[i] + noise[(c + i) % 16], 0, 255)
+            files.append(write_image_file(folder / f'{i:04d}',
+                                          img.astype(np.uint8)))
+            labels.append(c)
+    return files, np.asarray(labels)
+
+
+def decoder_line(native, rows_before=0):
+    """Which decoder a file phase went through, failing when the native
+    library is built and did not decode, or is not built and did."""
+    rows = native.rows_decoded() - rows_before
+    if native.available():
+        require(rows > 0, 'the native library is built, but no row of this '
+                'path decoded through it')
+        return f'native library, {rows} rows decoded by it'
+    require(rows == 0, f'{rows} rows counted without a native library')
+    return 'PIL (the native library is not built on this machine)'
+
+
+def slice13_phases(rng, context):
+    """Phases 45-48 (see the module docstring): the native image library
+    and the file-reading paths on the card; every launch count and the
+    native row count reset just before each path and read just after."""
+    import tempfile
+
+    import torch
+
+    from facenet_tpu_torch import native, statistics
+    from facenet_tpu_torch.config import Config
+    from facenet_tpu_torch.dataset import Database, ImageLoader, PKPipeline
+    from facenet_tpu_torch.detectors.evaluation import iou_matrix
+    from facenet_tpu_torch.detectors.face_detector import FaceDetector
+    from facenet_tpu_torch.detectors.mtcnn import letterbox
+    from facenet_tpu_torch.facenet import evaluate_embeddings
+    from facenet_tpu_torch.pipeline import FacePipeline
+    from facenet_tpu_torch.train.softmax import SoftmaxTrainer
+    from facenet_tpu_torch.utils.timing import spread
+
+    smi, facenet = context['smi'], context['facenet']
+    started = time.monotonic()
+
+    # 45. the library
+    probe, headers = context['native_probe']
+    print(f'[45] the native image library (facenet_tpu_torch/native): {probe}')
+    t0 = time.monotonic()
+    built = native.available()
+    if headers:
+        require(built, f'the headers are there, but the native library did '
+                f'not build: {native.build_error()}')
+    if built:
+        print(f'  built {native.library_path().name} in '
+              f'{time.monotonic() - t0:.1f} s')
+        sizes = [tuple(int(v) for v in rng.integers(1, 700, 4))
+                 for _ in range(12)]
+        sizes += [(1, 300, 480, 640), (300, 1, 480, 640), (200, 300, 1, 90),
+                  (200, 300, 90, 1), (1080, 1440, 540, 720)]
+        worst = 0
+        for h, w, th, tw in sizes:
+            img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            want = np.zeros((th, tw, 3), np.uint8)
+            letterbox._letterbox_into(want, img, h, w)
+            got = native.letterbox_array(img, (th, tw))
+            worst = max(worst, int(np.abs(got.astype(np.int32)
+                                          - want).max()))
+        with tempfile.TemporaryDirectory() as tmp:
+            img = rng.integers(0, 256, (97, 203, 3), dtype=np.uint8)
+            write_png(Path(tmp) / 'a.png', img)
+            png_equal = np.array_equal(
+                native.decode_image_native_size(Path(tmp) / 'a.png'), img)
+        print(f'  letterbox_array vs the numpy restatement on {len(sizes)} '
+              f'sizes (1-pixel sides included): max |d| {worst}; PNG decode '
+              f'{"equal" if png_equal else "NOT equal"} to the written array')
+        require(worst == 0 and png_equal, 'the native library disagrees')
+    else:
+        print(f'  not built on this machine ({native.build_error()}); the '
+              'file phases below decode with PIL')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / 'faces'
+        root.mkdir()
+        t0 = time.monotonic()
+        files, _ = face_files(rng, root, 100, 20)
+        made_s = time.monotonic() - t0
+        nbytes = sum(f.stat().st_size for f in files)
+
+        # 46. validate from files
+        print(f'[46] validate from files: {len(files)} 250x250 '
+              f'{files[0].suffix} files in 100 identity folders '
+              f'({nbytes / len(files) / 1e3:.1f} kB a file, made in '
+              f'{made_s:.1f} s) -> Database -> BatchLoader(ImageLoader(160)) '
+              '-> FaceNet bf16 -> evaluate_embeddings -> FaceToFaceValidation'
+              ' (cuda)')
+        db = Database(root)
+        loader = ImageLoader(size=160)
+        vcfg = Config({'metric': 0, 'nrof_folds': 10, 'far_target': 1e-3})
+        for n in (128, len(files) % 128):       # the chain's batch shapes
+            facenet.evaluate(np.zeros((n, 160, 160, 3), np.uint8))
+        reset_launches()
+        native.reset_rows_decoded()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embs, labels = evaluate_embeddings(
+            facenet.dispatch, db.batches(loader, 128))
+        t1 = time.perf_counter()
+        report = statistics.FaceToFaceValidation(embs, labels, vcfg,
+                                                 device='cuda')
+        chain_s = time.perf_counter() - t0
+        report_s = time.perf_counter() - t1
+        counts = read_launches()
+        decoder = decoder_line(native)
+        t0 = time.perf_counter()
+        for _ in db.batches(loader, 128):
+            pass
+        loader_s = time.perf_counter() - t0
+        decoded = np.stack([loader(f) for f in db.files])
+        ref = np.concatenate([facenet.evaluate(decoded[s:s + 128])
+                              for s in range(0, len(decoded), 128)])
+        cos = (embs * ref).sum(1) / np.linalg.norm(ref, axis=1)
+        require(embs.shape == (2000, 512) and np.isfinite(embs).all()
+                and np.array_equal(labels, db.labels),
+                'validate from files: bad rows')
+        require(cos.min() >= 0.99999, f'validate from files: min cosine '
+                f'{cos.min()} to FaceNet on the decoded arrays')
+        require(counts == only(pair_below_counts=30),
+                f'expected 30 pair_below_counts launches alone, got {counts}')
+        accuracy = report.dict['MaximumAccuracy']['accuracy']
+        require(np.isfinite(accuracy), 'non-finite report')
+        print(f'  decoder: {decoder}; rows in order, min cosine '
+              f'{cos.min():.7f} to FaceNet on the decoded arrays; kernel '
+              f'launches {counts}; accuracy {accuracy:.4f}')
+        print(f'  on {smi}: the loader alone {len(files) / loader_s:.1f} '
+              f'img/s; the chain {chain_s:.3f} s = {len(files) / chain_s:.1f}'
+              f' img/s as issued, {report_s:.3f} s of it the 10-fold '
+              f'validation; phase 18 (arrays in memory, no decode) '
+              f'{context["extract_rate"]:.1f} img/s, its loader '
+              f'{context["extract_loader_rate"]:.1f} img/s')
+
+        # 47. train from files
+        print('[47] train from files: PKPipeline(ImageLoader(160)) 20 x 5 '
+              'over the same tree -> SoftmaxTrainer, full-width IRv1 + '
+              f'{VGGFACE2_CLASSES}-way head, bf16, 20 steps at batch 100 '
+              '(cuda)')
+        pk_config = {'nrof_classes_per_batch': 20,
+                     'nrof_examples_per_class': 5}
+        t0 = time.perf_counter()
+        probe_pk = PKPipeline(loader, db.classes, Config(dict(pk_config)),
+                              seed=1)
+        for _ in range(10):
+            next(probe_pk)
+        pk_rate = 1000 / (time.perf_counter() - t0)
+        trainer = SoftmaxTrainer(train_config(), VGGFACE2_CLASSES,
+                                 device='cuda')
+        state = trainer.init_state(seed=0)
+        state, _ = trainer.step_fn(state, *trainer.placed(*next(PKPipeline(
+            loader, db.classes, Config(dict(pk_config)), seed=2))))
+        pk = PKPipeline(loader, db.classes, Config(dict(pk_config)), seed=0)
+        reset_launches()
+        native.reset_rows_decoded()
+        torch.cuda.synchronize()
+        entropies, waits = [], []
+        t0 = time.perf_counter()
+        for _ in range(20):
+            t1 = time.perf_counter()
+            images, labels = next(pk)
+            waits.append(time.perf_counter() - t1)
+            state, metrics = trainer.step_fn(state,
+                                             *trainer.placed(images, labels))
+            entropies.append(metrics['cross_entropy'])
+        entropies = [float(v) for v in entropies]
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_launches()
+        decoder = decoder_line(native)
+        first, last = np.mean(entropies[:5]), np.mean(entropies[-5:])
+        print(f'  decoder: {decoder}; cross-entropies '
+              f'{" ".join(f"{v:.3f}" for v in entropies)}; kernel launches '
+              f'{counts}')
+        require(np.isfinite(entropies).all() and last < first,
+                f'cross-entropy not falling from files: {first} -> {last}')
+        require(counts == only(), f'training launched kernels: {counts}')
+        print(f'  on {smi}: the loader alone {pk_rate:.1f} img/s; 20 steps '
+              f'from files {run_s:.3f} s = {2000 / run_s:.1f} img/s (phase '
+              f'25 in memory: {100e3 / context["train_ms"]:.1f} img/s as '
+              f'issued); the loader\'s wait a step {1e3 * np.mean(waits):.1f}'
+              f' ms (max {1e3 * max(waits):.1f})')
+        del trainer, state
+
+        # 48. detect from files
+        print('[48] detect from files: 64 scene files (32 480x640, 32 '
+              '1080x1440) -> FaceDetector(image_shapes=[(480, 640), (540, '
+              '720)]).detect_files, batches of 16; then FacePipeline'
+              '.process_files on the 480x640 half, batches of 8 (cuda)')
+        scenes = Path(tmp) / 'scenes'
+        scenes.mkdir()
+        big, _, _ = detection_scenes(48, 32, BIG_SCENE, 30, 150)
+        big = np.repeat(np.repeat(big, 2, axis=1), 2, axis=2)
+        paths = ([write_image_file(scenes / f's{i:02d}', img)
+                  for i, img in enumerate(context['images'][:32])]
+                 + [write_image_file(scenes / f'b{i:02d}', img)
+                    for i, img in enumerate(big)])
+        det = FaceDetector(image_shapes=[SCENE, BIG_SCENE], device='cuda')
+        det.detect_files(paths[:1] + paths[-1:], batch_size=16)  # build
+        reset_launches()
+        native.reset_rows_decoded()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        found = det.detect_files(paths, batch_size=16)
+        files_s = time.perf_counter() - t0
+        counts = read_launches()
+        decoder = decoder_line(native)
+        require(counts == only(pnet_pyramid=4),
+                f'expected 4 pnet_pyramid launches (2 batches a bucket), '
+                f'got {counts}')
+        # the cascade one batch at a time on the same decoded canvases
+        worst_box = worst_score = 0.0
+        decode_ms, cascade_ms, n_found = [], [], 0
+        for start in range(0, 64, 16):
+            t1 = time.perf_counter()
+            decoded = [letterbox.letterbox_file(p, det.route_shape)
+                       for p in paths[start:start + 16]]
+            decode_ms.append(1e3 * (time.perf_counter() - t1))
+            backend = det.backend_for(decoded[0][0].shape[:2])
+            batch = np.stack([canvas for canvas, _, _ in decoded])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = backend.detect_batch(batch)
+            cascade_ms.append(1e3 * (time.perf_counter() - t1))
+            for i, (_, scale, (left, top)) in enumerate(decoded):
+                want = det._boxes_from_output(out, i, scale, left, top)
+                got = found[start + i]
+                require(len(got) == len(want), f'file {start + i}: '
+                        f'{len(got)} faces, {len(want)} on its canvas')
+                if not want:
+                    continue
+                a = np.array([[b.left, b.top, b.right, b.bottom]
+                              for b in want], np.float64)
+                b = np.array([[g.left, g.top, g.right, g.bottom]
+                              for g in got], np.float64)
+                match = iou_matrix(a, b).argmax(axis=1)
+                require(sorted(match) == list(range(len(b))),
+                        f'file {start + i}: faces do not match by IoU')
+                worst_box = max(worst_box, float(np.abs(a - b[match]).max()))
+                worst_score = max(worst_score, max(
+                    abs(want[k].confidence - got[j].confidence)
+                    for k, j in enumerate(match)))
+                n_found += len(want)
+        print(f'  decoder: {decoder}; {n_found} faces in 64 files, the '
+              f'same as the cascade one batch at a time on the decoded '
+              f'canvases: boxes within {worst_box:.1f} px (pixel-rounded), '
+              f'scores within {worst_score:.4f}; kernel launches {counts}')
+        require(n_found >= 64 and worst_box <= 2 and worst_score <= 0.02,
+                f'detect_files off the canvases: {n_found} faces, boxes '
+                f'{worst_box} px, scores {worst_score}')
+        print(f'  on {smi}: detect_files {files_s:.3f} s = '
+              f'{64 / files_s:.1f} scenes/s; a batch of 16 decoded '
+              f'(letterbox_file, serial) in {spread(decode_ms)} ms '
+              f'(480x640 | 1080x1440), the cascade on it in '
+              f'{spread(cascade_ms)} ms')
+
+        pipe = FacePipeline(facenet, image_shape=SCENE, align='landmarks')
+        pipe.process_files(paths[:8], batch_size=8)               # warm
+        reset_launches()
+        native.reset_rows_decoded()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb, _, valid = pipe.process_files(paths[:32], batch_size=8)
+        pipe_s = time.perf_counter() - t0
+        counts = read_launches()
+        decoder = decoder_line(native)
+        want = pipe.process_batch(np.stack(
+            [letterbox.letterbox_file(p, lambda h, w: SCENE)[0]
+             for p in paths[:8]]))
+        norms = np.linalg.norm(emb[valid], axis=-1)
+        agree = (emb[:8] * want['embeddings']).sum(-1)[valid[:8]]
+        print(f'  process_files: decoder: {decoder}; {int(valid.sum())} '
+              f'faces, min cosine {agree.min():.6f} to process_batch on the '
+              f'first 8 scenes; kernel launches {counts}; {pipe_s:.3f} s = '
+              f'{32 / pipe_s:.1f} scenes/s on {smi}')
+        require(counts == only(pnet_pyramid=4, dense_warp=4),
+                f'expected 4 pnet_pyramid and 4 dense_warp launches, got '
+                f'{counts}')
+        require(np.array_equal(valid[:8], want['valid'])
+                and np.abs(norms - 1).max() < 1e-3 and agree.min() >= 0.999,
+                'process_files differs from process_batch on the arrays')
+    print(f'  phases 45-48 in {time.monotonic() - started:.1f} s on {smi}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3148,6 +3547,8 @@ def main():
     print(smi)
     print(f'torch {torch.__version__} cuda {torch.version.cuda} '
           f'python {sys.version.split()[0]}')
+    probe = native_probe()
+    print(f'native image library: {probe[0]}')
 
     # 2. build every kernel, one nvcc each, all started together
     t0 = time.monotonic()
@@ -3339,7 +3740,8 @@ def main():
     }
     context, detection = detection_phases(rng, libs, bundle)
     context.update(smi=smi, variables=variables, facenet=facenet,
-                   bundle=bundle, pair_inputs=pair_inputs, pair_ms=kern_ms)
+                   bundle=bundle, pair_inputs=pair_inputs, pair_ms=kern_ms,
+                   native_probe=probe)
     slice3 = slice3_phases(rng, libs, context)
     slice7_phases(rng, context)
     slice8_phases(rng, context)
@@ -3347,6 +3749,7 @@ def main():
     slice10_phases(context)
     slice11_phases(rng, context)
     slice12_phases(rng, context)
+    slice13_phases(rng, context)
 
     print(f'total {time.monotonic() - started:.1f} s')
     print(json.dumps({'kernels': [pair_entry] + detection + slice3}))

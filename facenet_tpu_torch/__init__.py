@@ -18,6 +18,16 @@ import torch
 
 __version__ = '0.1.0'
 
+# the reference's node-name contract of a served model
+nodes = {
+    'input': {'name': 'input', 'type': 'uint8'},
+    'output': {'name': 'embeddings', 'type': 'float32'},
+}
+
+config_nodes = {
+    'image_size': {'name': 'image_size', 'type': 'uint8'},
+}
+
 
 class FaceNet:
     """Serving-time embedding extractor.

@@ -1,5 +1,6 @@
 """Inspect a dataset: print its index statistics and find the images that
-do not decode (checked with PIL's verify), so that a corrupt file shows
+do not decode (checked by the native library's header probe, or with PIL's
+verify where the library was not built), so that a corrupt file shows
 before a training run reaches it.
 
     python -m facenet_tpu_torch.apps.dataset --path <dataset dir>
@@ -10,11 +11,13 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-from facenet_tpu_torch import dataset
+from facenet_tpu_torch import dataset, native
 
 
 def check_file(path):
     """None if the image decodes, else a line naming the file and why."""
+    if native.available():
+        return None if native.probe_image(path) else f'unreadable: {path}'
     from PIL import Image
     try:
         with Image.open(path) as image:

@@ -32,15 +32,23 @@ DETECT_BATCH = 32
 
 
 def _load_chunk(paths):
-    """Decode a chunk of files; returns (arrays, ok_paths, n_failed)."""
+    """Decode a chunk of files with the native library (PIL for what it
+    cannot read, or where it was not built); returns (arrays, ok_paths,
+    n_failed)."""
+    from facenet_tpu_torch import native
+
+    use_native = native.available()
     arrays, ok_paths = [], []
     failed = 0
     for path in paths:
-        try:
-            arrays.append(ioutils.read_image(path))
-        except IOError:
-            failed += 1
-            continue
+        arr = native.decode_image_native_size(path) if use_native else None
+        if arr is None:
+            try:
+                arr = ioutils.read_image(path)
+            except IOError:
+                failed += 1
+                continue
+        arrays.append(arr)
         ok_paths.append(path)
     return arrays, ok_paths, failed
 

@@ -57,7 +57,13 @@ def load_annotations(path):
 
 
 def _read_image(path):
-    """uint8 RGB array of an image file, or None if it cannot be read."""
+    """uint8 RGB array of an image file (the native library's decode, PIL
+    for what it cannot read), or None if it cannot be read."""
+    from facenet_tpu_torch import native
+    if native.available():
+        arr = native.decode_image_native_size(path)
+        if arr is not None:
+            return arr
     try:
         return ioutils.read_image(path)
     except IOError:

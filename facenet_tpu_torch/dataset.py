@@ -1,11 +1,13 @@
 """Dataset indexing and a batched image pipeline.
 
 The directory-per-class `ImageClass`/`Database` index with h5 validity
-filtering and class/image subsampling, a PIL image loader with
-crop-or-pad to a fixed size, `BatchLoader`, a threaded, prefetching,
-resumable pipeline of uint8 NHWC batches, and `PKPipeline`, the resumable
-P-classes x K-images batches of metric learning. PIL and h5py are imported
-only where files are read.
+filtering and class/image subsampling, an image loader with crop-or-pad to
+a fixed size, `BatchLoader`, a prefetching, resumable pipeline of uint8
+NHWC batches, and `PKPipeline`, the resumable P-classes x K-images batches
+of metric learning. Files decode through the port's native library
+(`facenet_tpu_torch.native`: JPEG and PNG, whole batches on its thread
+pool), and through PIL where it cannot read a file or was not built. PIL
+and h5py are imported only where files are read.
 """
 
 from __future__ import annotations
@@ -71,6 +73,10 @@ class ImageClass:
     @property
     def nrof_images(self):
         return len(self.files)
+
+    @property
+    def nrof_pairs(self):
+        return self.nrof_images * (self.nrof_images - 1) // 2
 
 
 class Database:
@@ -149,6 +155,10 @@ class Database:
     def nrof_images(self):
         return sum(cls.nrof_images for cls in self.classes)
 
+    @property
+    def nrof_images_per_class(self):
+        return [cls.nrof_images for cls in self.classes]
+
     def batches(self, loader, batch_size, shuffle=False, repeat=False,
                 drop_remainder=False, num_workers=8, prefetch=2, seed=None,
                 start_state=None, rows=None):
@@ -162,13 +172,24 @@ class Database:
                            num_workers=num_workers, prefetch=prefetch,
                            seed=seed, start_state=start_state, rows=rows)
 
+    def tf_dataset_api(self, loader, batch_size, buffer_size=None,
+                       repeat=False):
+        """`batches` under the reference's name: shuffled when a
+        `buffer_size` is given."""
+        return self.batches(loader, batch_size,
+                            shuffle=buffer_size is not None, repeat=repeat)
+
 
 DBase = Database
 
 
 class ImageLoader:
-    """Decode an image file with PIL into a fixed-shape uint8 RGB array
-    (center crop-or-pad to size x size)."""
+    """Decode an image file into a fixed-shape uint8 RGB array (center
+    crop-or-pad to size x size)."""
+
+    # the native library's geometry mode for this loader (crop-or-pad):
+    # `BatchLoader` and `PKPipeline` decode whole batches in it
+    native_mode = 0
 
     def __init__(self, config=None, size=None):
         if size is None:
@@ -176,6 +197,15 @@ class ImageLoader:
         self.height = self.width = int(size)
 
     def __call__(self, path):
+        from facenet_tpu_torch import native
+        if native.available():
+            img = native.decode_image(path, (self.height, self.width),
+                                      mode=self.native_mode)
+            if img is not None:
+                return img
+            # the library reads JPEG and PNG: PIL reads the other formats
+            # (GIF, BMP, TIFF, WebP, CMYK JPEG) and raises on a file that
+            # neither can read
         from PIL import Image
         with Image.open(path) as img:
             arr = np.asarray(img.convert('RGB'), dtype=np.uint8)
@@ -207,7 +237,11 @@ class BatchLoader:
     callable ``file -> uint8 [H, W, 3]`` (an `ImageLoader`, or a lookup
     into arrays already in memory); `num_workers` of them run on a thread
     pool and `prefetch` batches are staged ahead, so the host's loading
-    overlaps the device's compute.
+    overlaps the device's compute. A loader with a ``native_mode`` (an
+    `ImageLoader`) hands whole batches to the native library's thread pool
+    instead, where the library is built; a row it cannot decode is loaded
+    again through the loader itself, which tries PIL and raises on a file
+    that PIL cannot read either.
 
     Resumable: the shuffle order of epoch e is derived from (seed, e) alone,
     exactly as the JAX package derives it, and the loader tracks an
@@ -251,6 +285,10 @@ class BatchLoader:
             return n // self.batch_size
         return -(-n // self.batch_size)
 
+    @property
+    def nrof_batches(self):
+        return len(self)
+
     def state(self):
         """Cursor for checkpointing; feed back via `start_state=`."""
         return {'seed': self.seed, 'epoch': self._epoch, 'pos': self._pos}
@@ -288,10 +326,19 @@ class BatchLoader:
             self._pos = 0
 
     def __iter__(self):
+        mode = _native_mode(self.loader)
+        if mode is None:
+            inner = self._iter_threads()
+        else:
+            inner = _native_batches(
+                self.files, self.loader, mode,
+                ((idx, self.labels[idx])
+                 for idx in map(self.rows, self._index_stream())),
+                self.num_workers, self.prefetch)
         # the cursor advances when a batch is handed out, so a `state()`
         # taken after a step never re-delivers that batch on resume
         # (prefetched but undelivered batches do not count)
-        for item in self._iter_threads():
+        for item in inner:
             self._advance()
             yield item
 
@@ -352,6 +399,45 @@ class BatchLoader:
                 pass
 
 
+def _native_mode(loader):
+    """The loader's geometry mode in the native library (an `ImageLoader`'s
+    ``native_mode``) where the library is built, else None."""
+    mode = getattr(loader, 'native_mode', None)
+    if mode is None:
+        return None
+    from facenet_tpu_torch import native
+    return mode if native.available() else None
+
+
+def _native_batches(files, loader, mode, batches, num_workers, prefetch):
+    """(images, labels) of each (file indices, labels) of `batches`,
+    decoded by the native library's loader in `mode`, `prefetch` batches
+    ahead; rows it could not decode go through `loader` itself."""
+    from facenet_tpu_torch import native
+
+    ldr = native.NativeBatchLoader(
+        files, (loader.height, loader.width), mode=mode,
+        num_threads=num_workers, prefetch=max(prefetch, 1))
+    pending = []
+
+    def stream():
+        for idx, labels in batches:
+            pending.append((idx, labels))
+            yield idx
+
+    try:
+        for images, ok in ldr.iterate(stream()):
+            idx, labels = pending.pop(0)
+            # the library reads JPEG and PNG: the loader's PIL path loads
+            # the other formats, and a file that no decoder reads raises
+            # instead of yielding a silent zero image
+            for row in np.flatnonzero(ok == 0):
+                images[row] = loader(files[idx[row]])
+            yield images, labels
+    finally:
+        ldr.close()
+
+
 class PKPipeline:
     """P-classes x K-images equal batches, forever.
 
@@ -364,12 +450,14 @@ class PKPipeline:
     classes, then K images of each, all without replacement — so the
     stream is a pure function of the batch counter and the seed, the same
     stream the JAX package draws. `state()` is that counter; `start_state=`
-    continues it. Images load on a thread pool; `rows` picks the part of
-    each batch that is loaded and yielded, as `BatchLoader`'s.
+    continues it. Images decode as `BatchLoader`'s do (the native library
+    `prefetch` batches ahead for an `ImageLoader`, else a thread pool);
+    `rows` picks the part of each batch that is loaded and yielded, as
+    `BatchLoader`'s.
     """
 
     def __init__(self, loader, classes, config, seed=None, num_workers=8,
-                 start_state=None, rows=None):
+                 prefetch=2, start_state=None, rows=None):
         self.p = int(config.nrof_classes_per_batch or 20)
         self.k = int(config.nrof_examples_per_class or 5)
         config.nrof_classes_per_batch = self.p
@@ -377,6 +465,7 @@ class PKPipeline:
 
         self.loader = loader
         self.num_workers = num_workers
+        self.prefetch = prefetch
         self.rows = rows or (lambda idx: idx)
         if seed is None:
             seed = int(np.random.randint(0, 2 ** 31 - 1))
@@ -413,18 +502,27 @@ class PKPipeline:
             labels.extend([ci] * self.k)
         return idx, np.asarray(labels, dtype=np.int32)
 
+    def _index_batches(self):
+        """(this process's rows of batch b's file indices, their labels)
+        for b from the cursor on."""
+        b = self._batch
+        while True:
+            idx, labels = self._sample(b)
+            yield np.asarray(self.rows(idx), np.int64), self.rows(labels)
+            b += 1
+
     def _batches(self):
+        mode = _native_mode(self.loader)
+        if mode is not None:
+            yield from _native_batches(
+                self.all_files, self.loader, mode, self._index_batches(),
+                self.num_workers, self.prefetch)
+            return
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-            b = self._batch
-            while True:
-                idx, labels = self._sample(b)
-                idx, labels = self.rows(idx), self.rows(labels)
+            for idx, labels in self._index_batches():
                 images = list(pool.map(
                     lambda i: self.loader(self.all_files[i]), idx))
-                # the cursor counts a batch once it is handed out
-                self._batch = b + 1
                 yield np.stack(images), labels
-                b += 1
 
     def __iter__(self):
         return self
@@ -432,15 +530,18 @@ class PKPipeline:
     def __next__(self):
         if self._iter is None:
             self._iter = self._batches()
-        return next(self._iter)
+        item = next(self._iter)
+        self._batch += 1        # the cursor counts a batch once handed out
+        return item
 
 
 def pipeline_with_equal_batches(loader, classes, config, seed=None,
-                                num_workers=8, start_state=None, rows=None):
+                                num_workers=8, prefetch=2, start_state=None,
+                                rows=None):
     """`PKPipeline` under the reference's name."""
     return PKPipeline(loader, classes, config, seed=seed,
-                      num_workers=num_workers, start_state=start_state,
-                      rows=rows)
+                      num_workers=num_workers, prefetch=prefetch,
+                      start_state=start_state, rows=rows)
 
 
 def equal_batches_input_pipeline(embeddings, config, seed=None):

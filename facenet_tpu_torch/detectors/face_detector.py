@@ -189,16 +189,81 @@ class FaceDetector:
         return self.detect_images([np.asarray(image)])[0]
 
     def detect_files(self, paths, batch_size=64):
-        """Image files -> per-file [BoundingBox] lists, in chunks of
+        """Image files -> per-file [BoundingBox] lists, in batches of
         `batch_size` files; unreadable files get an empty list.
 
-        Each file goes to the bucket of its native size and is decoded as
-        the JAX package's native loader decodes it
-        (`letterbox.letterbox_file`: a JPEG at a reduced DCT scale, placed
-        by its native size)."""
-        from facenet_tpu_torch.detectors.mtcnn.letterbox import letterbox_file
+        With the native library (`facenet_tpu_torch.native`), as the JAX
+        package: each file routes to the bucket of its native size by a
+        header-only probe, each bucket's files decode on the library's
+        thread pool in MODE_LETTERBOX a batch ahead of the device, the
+        backend runs two batches deep (`detect_batch_async` /
+        `finalize_batch`), and a batch's letterbox geometry is read from
+        the headers while the device works. Without it, PIL decodes the
+        same canvases (`letterbox.letterbox_file`) one batch at a time."""
+        from facenet_tpu_torch import native
 
         paths = [str(p) for p in paths]
+        if not native.available():
+            return self._detect_files_pil(paths, batch_size)
+        if len(self.image_shapes) == 1:
+            return self._detect_files_native(paths, batch_size,
+                                             self.image_shapes[0])
+        by_shape = {}
+        for j, path in enumerate(paths):
+            size = native.probe_image(path)
+            shape = self.route_shape(*size) if size else self.image_shapes[0]
+            by_shape.setdefault(shape, []).append(j)
+        results = [None] * len(paths)
+        for shape, idxs in by_shape.items():
+            found = self._detect_files_native([paths[j] for j in idxs],
+                                              batch_size, shape)
+            for j, boxes in zip(idxs, found):
+                results[j] = boxes
+        return results
+
+    def _detect_files_native(self, paths, batch_size, shape):
+        """`detect_files` of files that all go to the bucket `shape`."""
+        from collections import deque
+
+        from facenet_tpu_torch import native
+
+        backend = self.backend_for(shape)
+        batches = [list(range(s, min(s + batch_size, len(paths))))
+                   for s in range(0, len(paths), batch_size)]
+        results = []
+
+        def collect(out_device, idxs, ok, geometry):
+            out = backend.finalize_batch(out_device)
+            for i, (scale, (left, top)) in enumerate(geometry):
+                results.append(self._boxes_from_output(
+                    out, i, scale, left, top) if ok[i] else [])
+
+        loader = native.NativeBatchLoader(paths, shape,
+                                          mode=native.MODE_LETTERBOX)
+        inflight = deque()
+        try:
+            for idxs, (images, ok) in zip(batches, loader.iterate(batches)):
+                out_device = backend.detect_batch_async(images)
+                # the headers are read while this batch runs on the device
+                geometry = []
+                for j in idxs:
+                    size = native.probe_image(paths[j])
+                    geometry.append(
+                        native.letterbox_geometry(*size, shape) if size
+                        else (1.0, (0, 0)))
+                inflight.append((out_device, idxs, ok, geometry))
+                if len(inflight) > 2:
+                    collect(*inflight.popleft())
+            while inflight:
+                collect(*inflight.popleft())
+        finally:
+            loader.close()
+        return results
+
+    def _detect_files_pil(self, paths, batch_size):
+        """`detect_files` without the native library."""
+        from facenet_tpu_torch.detectors.mtcnn.letterbox import letterbox_file
+
         results = [[] for _ in paths]
         for start in range(0, len(paths), batch_size):
             by_shape = {}

@@ -1,8 +1,10 @@
 """Letterboxing: scale an image into the cascade's fixed (H, W) and pad.
 
-The pixels follow the JAX package's native letterbox
-(``facenet_tpu/native/imageio.cc::letterbox`` over ``resize_bilinear``),
-its default path, restated here in integer numpy:
+Where the port's native library is built (`facenet_tpu_torch.native`, a
+copy of the JAX package's), `letterbox_batch` and `letterbox_file` run its
+C++ letterbox, as the JAX package does. Its pixels are restated here in
+integer numpy, which runs where the library is not built and is what the
+tests hold the library to:
 
 - the placement (scale, scaled size, centred pads) in binary32 with
   truncation (`letterbox_geometry`);
@@ -13,7 +15,7 @@ its default path, restated here in integer numpy:
   that covers the scaled size, and letterboxed with the placement of its
   native size (`letterbox_file`).
 
-PIL is imported only where a file is decoded.
+PIL is imported only where a file is decoded without the library.
 """
 
 from __future__ import annotations
@@ -134,7 +136,9 @@ def _letterbox_into(canvas, img, geom_h, geom_w):
 
 
 def letterbox_batch(images, target_shape):
-    """Host side: scale and pad arbitrary-size images to a fixed shape.
+    """Host side: scale and pad arbitrary-size images to a fixed shape,
+    with the native library's C++ letterbox where it is built, else its
+    numpy restatement (the same pixels).
 
     Accepts grayscale [H, W] / [H, W, 1] (broadcast to RGB) and RGBA
     [H, W, 4] (alpha dropped).
@@ -142,13 +146,20 @@ def letterbox_batch(images, target_shape):
     Returns (batch [B, H, W, 3] uint8, scales [B], pads [B, 2]) such that
     original_coords = (letterboxed_coords - pad) / scale.
     """
+    from facenet_tpu_torch import native
+
     th, tw = int(target_shape[0]), int(target_shape[1])
     out = np.zeros((len(images), th, tw, 3), np.uint8)
     scales = np.zeros((len(images),), np.float32)
     pads = np.zeros((len(images), 2), np.float32)
+    use_native = native.available()
     for i, img in enumerate(images):
         img = _as_rgb(img, i)
-        scales[i], pads[i] = _letterbox_into(out[i], img, *img.shape[:2])
+        if use_native:
+            out[i] = native.letterbox_array(img, (th, tw))
+            scales[i], pads[i] = letterbox_geometry(*img.shape[:2], (th, tw))
+        else:
+            scales[i], pads[i] = _letterbox_into(out[i], img, *img.shape[:2])
     return out, scales, pads
 
 
@@ -199,8 +210,8 @@ def force_jpeg_scale(img, k):
 
 
 def letterbox_file(path, route):
-    """Decode an image file and letterbox it as the JAX package's
-    ``NativeBatchLoader(MODE_LETTERBOX)`` does.
+    """Decode an image file and letterbox it as
+    ``native.NativeBatchLoader(MODE_LETTERBOX)`` does.
 
     :param path: image file
     :param route: (h, w) -> (th, tw), the letterbox shape for an image of
@@ -208,10 +219,22 @@ def letterbox_file(path, route):
     :return: (canvas [th, tw, 3] uint8, scale, (pad_left, pad_top)), the
         placement that of the native size; raises on an unreadable file
 
-    A JPEG is decoded at the reduction 8 / M that libjpeg's M/8 scaling
-    gives (`_jpeg_reduction`, forced by `force_jpeg_scale`), and that
-    smaller image is resized onto the native size's placement.
+    The native library decodes JPEG and PNG (`native.decode_image` in
+    MODE_LETTERBOX, the loader's decode). Without it, or for another
+    format, PIL decodes: a JPEG at the reduction 8 / M that libjpeg's M/8
+    scaling gives (`_jpeg_reduction`, forced by `force_jpeg_scale`), and
+    that smaller image is resized onto the native size's placement.
     """
+    from facenet_tpu_torch import native
+
+    if native.available():
+        size = native.probe_image(path)
+        if size is not None:
+            target = route(*size)
+            canvas = native.decode_image(path, target, native.MODE_LETTERBOX)
+            if canvas is not None:
+                return (canvas,) + letterbox_geometry(*size, target)
+
     from PIL import Image
 
     with Image.open(path) as img:

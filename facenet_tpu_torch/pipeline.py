@@ -114,10 +114,13 @@ class FacePipeline:
     def process_files(self, paths, batch_size=64):
         """Image files -> (embeddings [N, num_faces, D], boxes, valid).
 
-        Files are decoded with PIL and letterboxed one batch ahead of the
-        device; boxes map back to original pixels through the letterbox
-        geometry. An unreadable file gives an all-invalid row.
+        Files are decoded at their own size by the native library
+        (`native.decode_image_native_size`; PIL where it was not built or
+        cannot read a file) and letterboxed one batch ahead of the device;
+        boxes map back to original pixels through the letterbox geometry.
+        An unreadable file gives an all-invalid row.
         """
+        from facenet_tpu_torch import ioutils, native
         from facenet_tpu_torch.detectors.mtcnn.letterbox import letterbox_batch
 
         paths = [str(p) for p in paths]
@@ -127,15 +130,19 @@ class FacePipeline:
         boxes = np.zeros((n, k, 4), np.float32)
         valid = np.zeros((n, k), bool)
 
+        use_native = native.available()
+
         def load(chunk):
-            from PIL import Image
             arrays, idxs = [], []
             for j in chunk:
-                try:
-                    with Image.open(paths[j]) as img:
-                        arrays.append(np.asarray(img.convert('RGB')))
-                except Exception:
-                    continue
+                arr = (native.decode_image_native_size(paths[j]) if use_native
+                       else None)
+                if arr is None:
+                    try:
+                        arr = ioutils.read_image(paths[j])
+                    except IOError:
+                        continue
+                arrays.append(arr)
                 idxs.append(j)
             if not arrays:
                 return None

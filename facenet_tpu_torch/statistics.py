@@ -278,6 +278,10 @@ class ConfidenceMatrix:
     def fp_rates(self):
         return 1 - self.tn_rates
 
+    @property
+    def fn_rates(self):
+        return 1 - self.tp_rates
+
 
 def roc_summary(fp_rates, tp_rates):
     """AUC and EER of a ROC curve given as per-threshold rate arrays.

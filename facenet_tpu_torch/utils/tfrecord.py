@@ -244,3 +244,7 @@ class TFRecord:
             np.zeros((0, 0), np.float32)
         self.labels = np.asarray(labels)
         self.files = files
+
+    @property
+    def data(self):
+        return self.embeddings

@@ -100,6 +100,26 @@ def test_distances_logits_and_predict_match_jax(normalized):
         assert v.dtype == np.float32
 
 
+@pytest.mark.parametrize('normalized', [False, True])
+def test_predict_and_variable_match_jax(normalized):
+    """`predict` (distance below the threshold) and `variable` (the tensor,
+    or numpy with mode='numpy') against JAX's, on both classifiers."""
+    jax_model, model = _pair(normalized)
+    per_class = _classes(normalized, seed=3)
+    x, y = per_class[0], np.concatenate(per_class[1:])
+    want = jax_model.predict(x, y)
+    got = model.predict(x, y)
+    assert got.dtype == np.bool_ and got.shape == want.shape
+    near = np.abs(np.asarray(jax_model.distance(x, y))
+                  - VARIANTS[normalized][1]['threshold']) < 1e-6
+    assert ((got == want) | near).all() and want.any() and not want.all()
+    for name in jax_model.variables:
+        value = model.variable(name, mode='numpy')
+        assert isinstance(value, np.ndarray)
+        assert value == np.asarray(jax_model.variable(name, mode='numpy'))
+        assert isinstance(model.variable(name), torch.Tensor)
+
+
 def test_distance_is_differentiable():
     _, model = _pair(False)
     variables = {k: v.clone().requires_grad_(True)

@@ -34,6 +34,11 @@ def test_pil_array_round_trips_equal_jax():
                                           jax_ioutils.pil2array(want, out))
 
 
+def test_node_name_contract_equals_jax():
+    assert facenet_tpu_torch.nodes == facenet_tpu.nodes
+    assert facenet_tpu_torch.config_nodes == facenet_tpu.config_nodes
+
+
 def test_image_loader_equals_jax(tmp_path, capsys):
     rng = np.random.RandomState(1)
     for i in range(5):

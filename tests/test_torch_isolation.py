@@ -69,7 +69,7 @@ def test_port_imports_no_jax_and_no_facenet_tpu():
                  'detectors.frcnn.detector', 'train.mtcnn',
                  'apps.train_detector', 'models', 'models.import_weights',
                  'utils.profiling', 'utils.debug', 'apps.export_model',
-                 'apps.model_info', 'apps.dataset'):
+                 'apps.model_info', 'apps.dataset', 'native'):
         assert f'facenet_tpu_torch.{name}' in result['names'], name
 
 

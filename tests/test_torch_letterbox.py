@@ -1,7 +1,10 @@
 """The port's letterbox (facenet_tpu_torch/detectors/mtcnn/letterbox.py)
-against the JAX package's default path, the native library
-(``facenet_tpu.native``: ``letterbox_array`` and the ``MODE_LETTERBOX``
-decode).
+in its numpy restatement, with PIL decoding the files, against the JAX
+package's default path, the native library (``facenet_tpu.native``:
+``letterbox_array`` and the ``MODE_LETTERBOX`` decode). The restatement is
+what runs where the port's own native library is not built, so every test
+here turns the port's library off; tests/test_torch_native.py holds the
+port's library to JAX's.
 
 Tolerance 0 everywhere: the port restates the library's integer resize,
 and its source coordinate in the fused multiply-add form that the
@@ -25,6 +28,12 @@ def native():
     if not lib.available():
         pytest.skip('the JAX package\'s native library is not available')
     return lib
+
+
+@pytest.fixture(autouse=True)
+def numpy_restatement(monkeypatch):
+    from facenet_tpu_torch import native as port_native
+    monkeypatch.setattr(port_native, 'available', lambda: False)
 
 
 def _max_diff(a, b):

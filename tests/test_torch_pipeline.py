@@ -52,12 +52,18 @@ def _cos(a, b):
                               * np.linalg.norm(b, axis=-1))
 
 
-def test_pipeline_crop_mode_matches_jax(bundle_path, scenes):
+@pytest.fixture(scope='module')
+def jax_crop_pipeline(bundle_path):
+    """JAX's crop-mode pipeline, compiled once for the module's tests."""
     from facenet_tpu.pipeline import FacePipeline as JaxPipeline
+    return JaxPipeline(bundle_path, image_shape=SHAPE, align='crop')
+
+
+def test_pipeline_crop_mode_matches_jax(bundle_path, scenes,
+                                        jax_crop_pipeline):
     from facenet_tpu_torch.pipeline import FacePipeline
 
-    want = JaxPipeline(bundle_path, image_shape=SHAPE,
-                       align='crop').process_batch(scenes)
+    want = jax_crop_pipeline.process_batch(scenes)
     got = FacePipeline(bundle_path, image_shape=SHAPE, align='crop',
                        device='cpu').process_batch(scenes)
     assert got['embeddings'].shape == (2, 1, 32)
@@ -131,3 +137,29 @@ def test_pipeline_process_files(bundle_path, scenes, tmp_path):
     with pytest.raises(ValueError, match='align'):
         FacePipeline(pipe.facenet, image_shape=SHAPE, align='rotate')
     assert isinstance(pipe.dispatch(scenes)['embeddings'], torch.Tensor)
+
+
+def test_process_files_matches_jax(bundle_path, scenes, jax_crop_pipeline,
+                                   tmp_path):
+    """`process_files` on a JPEG, a PNG and an unreadable file, decoded by
+    the port's native library (PIL where it is not built) and by JAX's:
+    the same valid rows, embeddings at cosine >= 0.999, boxes within 1.5
+    px in the scenes' pixels."""
+    from facenet_tpu_torch import native
+    from facenet_tpu_torch.pipeline import FacePipeline
+
+    paths = [tmp_path / 's0.jpg', tmp_path / 's1.png', tmp_path / 'bad.jpg']
+    Image.fromarray(scenes[0]).save(paths[0], quality=95)
+    Image.fromarray(scenes[1]).save(paths[1])
+    paths[2].write_bytes(b'not an image')
+    native.reset_rows_decoded()
+    got = FacePipeline(bundle_path, image_shape=SHAPE, align='crop',
+                       device='cpu').process_files(paths, batch_size=2)
+    if native.available():
+        assert native.rows_decoded() == 2
+    want = jax_crop_pipeline.process_files(paths, batch_size=2)
+    np.testing.assert_array_equal(got[2], want[2])
+    valid = got[2]
+    assert valid[:2, 0].all() and not valid[2].any()
+    assert _cos(got[0][valid], want[0][valid]).min() >= 0.999
+    assert np.abs(got[1][valid] - want[1][valid]).max() < 1.5

@@ -160,7 +160,7 @@ def test_confidence_matrix_from_calculator_matches_jax(clustered, metric):
             statistics.SimilarityCalculator(raw, labels, metric=metric),
             thresholds, device='cpu')
         for attr in ('tp', 'fn', 'fp', 'tn', 'accuracy', 'precision',
-                     'tp_rates', 'tn_rates', 'fp_rates'):
+                     'tp_rates', 'tn_rates', 'fp_rates', 'fn_rates'):
             np.testing.assert_allclose(getattr(got, attr),
                                        getattr(want, attr), atol=1e-6,
                                        err_msg=attr)

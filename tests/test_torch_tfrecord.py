@@ -48,6 +48,7 @@ def test_round_trip(tmp_path):
     other = jax_tfrecord.TFRecord(path)
     np.testing.assert_array_equal(other.embeddings, emb)
     assert other.files == files
+    np.testing.assert_array_equal(loaded.data, other.data)
 
 
 @pytest.mark.parametrize('offset, match', [(9, 'header crc'),
