@@ -282,46 +282,54 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      launches and its top 10 kernels.
      No hand-written kernel lies on the paths of 41-44 either.
  45. the port's native image library (facenet_tpu_torch/native): the
-     probe (g++ and the headers it includes) is printed on an early line;
-     where the headers are there the library must build, and then
-     letterbox_array equals the numpy restatement (letterbox.py) at max
-     |d| = 0 on sizes with 1-pixel sides, and a PNG written here with zlib
-     decodes to the written array; where they are not, the build's error
-     is printed and the file phases below decode with PIL;
+     probe (g++, the system headers the system build includes, the
+     libjpeg and libpng Pillow carries) is printed on an early line; the
+     library must build (against the system's libraries, else against
+     Pillow's with the port's headers; a failed build fails the run with
+     both builds' messages), and its library_source() and files are
+     printed; letterbox_array equals the numpy restatement (letterbox.py)
+     at max |d| = 0 on sizes with 1-pixel sides, a PNG written here with
+     zlib decodes to the written array, and the native decode equals
+     PIL's (which decodes with the same libjpeg-turbo where the library
+     links Pillow's) at max |d| = 0: 64 of phase 46's JPEGs at full size
+     and letterboxed into 96x96, and phase 48's 32 1080x1440 JPEGs
+     letterboxed into 480x640, both at the DCT scale 1/2;
  46. validate from files: 2,000 250x250 JPEGs (LFW's file size) in 100
      identity folders -> Database -> BatchLoader(ImageLoader(160)) ->
      phase 4's FaceNet -> evaluate_embeddings -> 10-fold
      FaceToFaceValidation, with the launch counts and the library's row
      count reset just before and read just after: exactly 30 B1 launches;
      the rows in order at cosine >= 0.99999 to FaceNet on the same files
-     decoded one by one; the rows went through the library where it is
-     built and none did where it is not; the loader's img/s alone and the
-     chain's as issued, beside phase 18's;
+     decoded one by one; rows went through the library; the loader's
+     img/s alone, and with the library turned off (PIL), and the chain's
+     as issued, beside phase 18's;
  47. train from files: PKPipeline (20 x 5) over the same tree feeding
      SoftmaxTrainer (full-width IRv1, the 8,631-way head, bf16, batch
      100) for 20 steps: the cross-entropy falling, no kernel launch, the
-     row count as in 46; the loader's img/s alone, the steps' img/s from
-     files beside phase 25's in memory, the loader's wait a step;
+     row count as in 46; the loader's img/s alone, and with the library
+     off (PIL, which decodes nothing ahead), the steps' img/s from files
+     beside phase 25's in memory, the loader's wait a step;
  48. detect from files: 32 of phase 10's scenes as 480x640 JPEGs and 32
      540x720 scenes upscaled to 1080x1440 JPEGs (decoded at libjpeg's DCT
      scale 1/2) through FaceDetector(image_shapes=[480x640, 540x720])
      .detect_files in batches of 16 (two deep): exactly 4 B3 launches (two
      batches a bucket); the faces, boxes (2 px after rounding) and scores
      (0.02) of the cascade run one batch at a time on the same decoded
-     canvases, IoU-matched; scenes/s, the decode ms of a batch beside the
-     cascade's; then FacePipeline.process_files (align='landmarks') on the
-     480x640 half in batches of 8: exactly 4 B3 and 4 B2 launches, the
-     valid slots and embeddings (cosine >= 0.999) of process_batch on the
-     decoded scenes; scenes/s. Each file phase prints which decoder ran.
+     canvases, IoU-matched; the canvases equal those of PIL's decode
+     (the library off) at max |d| = 0; scenes/s, the decode ms of a batch
+     with the library and without beside the cascade's; then
+     FacePipeline.process_files (align='landmarks') on the 480x640 half
+     in batches of 8: exactly 4 B3 and 4 B2 launches, the valid slots and
+     embeddings (cosine >= 0.999) of process_batch on the decoded scenes;
+     scenes/s. Each file phase prints which decoder ran.
 
 The GPU machine may lack yaml, h5py, sklearn and click, so nothing here
 imports them at module level: the model bundle is built in memory, and
 phase 41 takes the in-memory form of the h5 import when h5py is missing.
 Phases 18-20 hand the port's loaders arrays through a callable; phases
-45-48 write files and decode them, through the native library where it
-builds and through PIL where it does not (PIL is imported only where a
-file is written or decoded; without it the files are PNGs written with
-zlib).
+45-48 write files and decode them through the native library, and
+through PIL only to compare (PIL is imported only where a file is
+written or decoded; without it the files are PNGs written with zlib).
 
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -331,6 +339,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import itertools
 import json
 import re
@@ -3197,27 +3206,6 @@ def write_image_file(stem, image, quality=90):
     return path
 
 
-def native_probe():
-    """One line: g++ and the headers the native image library includes."""
-    import subprocess
-    try:
-        version = subprocess.run(['g++', '--version'], capture_output=True,
-                                 text=True, timeout=60).stdout.splitlines()[0]
-    except (OSError, IndexError):
-        return 'g++ not found', False
-    # imageio.cc's includes, in its order (jpeglib.h needs stdio's FILE)
-    check = subprocess.run(
-        ['g++', '-fsyntax-only', '-x', 'c++', '-'],
-        input='#include <cstdio>\n#include <jpeglib.h>\n#include <png.h>\n'
-              '#include <zlib.h>\n',
-        capture_output=True, text=True, timeout=60)
-    found = check.returncode == 0
-    errors = [line.split('error:')[-1].strip()
-              for line in check.stderr.splitlines() if 'error:' in line]
-    return (f'{version}; jpeglib.h, png.h, zlib.h '
-            f'{"found" if found else "not found: " + errors[0]}'), found
-
-
 def face_files(rng, root, n_classes, per_class, size=250):
     """`n_classes` identity folders of `per_class` face-sized files: a
     smooth base image an identity, a smooth field and noise an image."""
@@ -3242,16 +3230,72 @@ def face_files(rng, root, n_classes, per_class, size=250):
     return files, np.asarray(labels)
 
 
-def decoder_line(native, rows_before=0):
-    """Which decoder a file phase went through, failing when the native
-    library is built and did not decode, or is not built and did."""
-    rows = native.rows_decoded() - rows_before
-    if native.available():
-        require(rows > 0, 'the native library is built, but no row of this '
-                'path decoded through it')
-        return f'native library, {rows} rows decoded by it'
-    require(rows == 0, f'{rows} rows counted without a native library')
-    return 'PIL (the native library is not built on this machine)'
+def decoder_line(native):
+    """The rows a file phase decoded through the native library, failing
+    where it decoded none."""
+    rows = native.rows_decoded()
+    require(rows > 0, 'no row of this path decoded through the native '
+            'library')
+    return f'native library ({native.library_source()}), {rows} rows'
+
+
+@contextlib.contextmanager
+def native_off(native):
+    """The port's file paths with the native library turned off, as
+    tests/test_torch_letterbox.py turns it off: they decode with PIL."""
+    available = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = available
+
+
+def max_diff(got, want):
+    """max |got - want| over two uint8 images, failing on another shape."""
+    require(got is not None and got.shape == want.shape,
+            f'decoded {None if got is None else got.shape}, want '
+            f'{want.shape}')
+    return int(np.abs(got.astype(np.int32) - want).max())
+
+
+def native_equals_pil(native, letterbox, files, big):
+    """Phase 45, continued: the native decode against PIL's, which decodes
+    with the same libjpeg-turbo where the library links Pillow's: 64 of
+    phase 46's 250x250 JPEGs at full size and letterboxed into 96x96, and
+    the 32 1080x1440 scene JPEGs letterboxed into 480x640 (both at the DCT
+    scale 1/2; PIL's side is `letterbox_file` with the library off, which
+    forces that scale), each at max |d| = 0."""
+    try:
+        import PIL
+        from PIL import Image
+    except ImportError:
+        print('  PIL is not installed: no decode to hold the library to')
+        return
+    t0 = time.monotonic()
+    sample = files[::len(files) // 64][:64]
+    require(all(f.suffix == '.jpg' for f in sample + big),
+            'PIL wrote no JPEGs')
+    worst = {'full': 0, (96, 96): 0, (480, 640): 0}
+    for path in sample:
+        with Image.open(path) as img:
+            want = np.asarray(img.convert('RGB'))
+        worst['full'] = max(worst['full'], max_diff(
+            native.decode_image_native_size(path), want))
+    for path, target in ([(f, (96, 96)) for f in sample]
+                         + [(f, (480, 640)) for f in big]):
+        got = native.decode_image(path, target, native.MODE_LETTERBOX)
+        with native_off(native):
+            want, _, _ = letterbox.letterbox_file(
+                path, lambda h, w, target=target: target)
+        worst[target] = max(worst[target], max_diff(got, want))
+    print(f'  the native decode against PIL {PIL.__version__}\'s: '
+          f'{len(sample)} of phase 46\'s JPEGs at full size max |d| '
+          f'{worst["full"]}, letterboxed into 96x96 (DCT 1/2) max |d| '
+          f'{worst[96, 96]}; {len(big)} 1080x1440 scene JPEGs into 480x640 '
+          f'(DCT 1/2) max |d| {worst[480, 640]} ({time.monotonic() - t0:.1f}'
+          ' s)')
+    require(max(worst.values()) == 0, 'the native decode differs from PIL\'s')
 
 
 def slice13_phases(rng, context):
@@ -3277,40 +3321,40 @@ def slice13_phases(rng, context):
     started = time.monotonic()
 
     # 45. the library
-    probe, headers = context['native_probe']
-    print(f'[45] the native image library (facenet_tpu_torch/native): {probe}')
+    print(f'[45] the native image library (facenet_tpu_torch/native): '
+          f'{context["native_probe"]}')
     t0 = time.monotonic()
-    built = native.available()
-    if headers:
-        require(built, f'the headers are there, but the native library did '
-                f'not build: {native.build_error()}')
-    if built:
-        print(f'  built {native.library_path().name} in '
-              f'{time.monotonic() - t0:.1f} s')
-        sizes = [tuple(int(v) for v in rng.integers(1, 700, 4))
-                 for _ in range(12)]
-        sizes += [(1, 300, 480, 640), (300, 1, 480, 640), (200, 300, 1, 90),
-                  (200, 300, 90, 1), (1080, 1440, 540, 720)]
-        worst = 0
-        for h, w, th, tw in sizes:
-            img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
-            want = np.zeros((th, tw, 3), np.uint8)
-            letterbox._letterbox_into(want, img, h, w)
-            got = native.letterbox_array(img, (th, tw))
-            worst = max(worst, int(np.abs(got.astype(np.int32)
-                                          - want).max()))
-        with tempfile.TemporaryDirectory() as tmp:
-            img = rng.integers(0, 256, (97, 203, 3), dtype=np.uint8)
-            write_png(Path(tmp) / 'a.png', img)
-            png_equal = np.array_equal(
-                native.decode_image_native_size(Path(tmp) / 'a.png'), img)
-        print(f'  letterbox_array vs the numpy restatement on {len(sizes)} '
-              f'sizes (1-pixel sides included): max |d| {worst}; PNG decode '
-              f'{"equal" if png_equal else "NOT equal"} to the written array')
-        require(worst == 0 and png_equal, 'the native library disagrees')
-    else:
-        print(f'  not built on this machine ({native.build_error()}); the '
-              'file phases below decode with PIL')
+    require(native.available(), f'the native library did not build:\n'
+            f'{native.build_error()}')
+    source = native.library_source()
+    variant = source.partition(':')[0]
+    linked = ''
+    if variant == 'pillow':
+        linked = ' against ' + ', '.join(
+            lib.name for lib in native.pillow_libs()[1:])
+    print(f'  {native.library_path(variant).name} loaded (built at its first '
+          f'use; {time.monotonic() - t0:.1f} s here); library_source() = '
+          f'{source}{linked}')
+    sizes = [tuple(int(v) for v in rng.integers(1, 700, 4))
+             for _ in range(12)]
+    sizes += [(1, 300, 480, 640), (300, 1, 480, 640), (200, 300, 1, 90),
+              (200, 300, 90, 1), (1080, 1440, 540, 720)]
+    worst = 0
+    for h, w, th, tw in sizes:
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        want = np.zeros((th, tw, 3), np.uint8)
+        letterbox._letterbox_into(want, img, h, w)
+        worst = max(worst, max_diff(native.letterbox_array(img, (th, tw)),
+                                    want))
+    with tempfile.TemporaryDirectory() as tmp:
+        img = rng.integers(0, 256, (97, 203, 3), dtype=np.uint8)
+        write_png(Path(tmp) / 'a.png', img)
+        png_equal = np.array_equal(
+            native.decode_image_native_size(Path(tmp) / 'a.png'), img)
+    print(f'  letterbox_array vs the numpy restatement on {len(sizes)} '
+          f'sizes (1-pixel sides included): max |d| {worst}; PNG decode '
+          f'{"equal" if png_equal else "NOT equal"} to the written array')
+    require(worst == 0 and png_equal, 'the native library disagrees')
 
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp) / 'faces'
@@ -3319,6 +3363,15 @@ def slice13_phases(rng, context):
         files, _ = face_files(rng, root, 100, 20)
         made_s = time.monotonic() - t0
         nbytes = sum(f.stat().st_size for f in files)
+        scenes = Path(tmp) / 'scenes'
+        scenes.mkdir()
+        big, _, _ = detection_scenes(48, 32, BIG_SCENE, 30, 150)
+        big = np.repeat(np.repeat(big, 2, axis=1), 2, axis=2)
+        paths = ([write_image_file(scenes / f's{i:02d}', img)
+                  for i, img in enumerate(context['images'][:32])]
+                 + [write_image_file(scenes / f'b{i:02d}', img)
+                    for i, img in enumerate(big)])
+        native_equals_pil(native, letterbox, files, paths[32:])
 
         # 46. validate from files
         print(f'[46] validate from files: {len(files)} 250x250 '
@@ -3349,6 +3402,11 @@ def slice13_phases(rng, context):
         for _ in db.batches(loader, 128):
             pass
         loader_s = time.perf_counter() - t0
+        with native_off(native):
+            t0 = time.perf_counter()
+            for _ in db.batches(loader, 128):
+                pass
+            pil_loader_s = time.perf_counter() - t0
         decoded = np.stack([loader(f) for f in db.files])
         ref = np.concatenate([facenet.evaluate(decoded[s:s + 128])
                               for s in range(0, len(decoded), 128)])
@@ -3366,7 +3424,8 @@ def slice13_phases(rng, context):
               f'{cos.min():.7f} to FaceNet on the decoded arrays; kernel '
               f'launches {counts}; accuracy {accuracy:.4f}')
         print(f'  on {smi}: the loader alone {len(files) / loader_s:.1f} '
-              f'img/s; the chain {chain_s:.3f} s = {len(files) / chain_s:.1f}'
+              f'img/s (the library off, PIL: {len(files) / pil_loader_s:.1f} '
+              f'img/s); the chain {chain_s:.3f} s = {len(files) / chain_s:.1f}'
               f' img/s as issued, {report_s:.3f} s of it the 10-fold '
               f'validation; phase 18 (arrays in memory, no decode) '
               f'{context["extract_rate"]:.1f} img/s, its loader '
@@ -3379,12 +3438,15 @@ def slice13_phases(rng, context):
               '(cuda)')
         pk_config = {'nrof_classes_per_batch': 20,
                      'nrof_examples_per_class': 5}
-        t0 = time.perf_counter()
-        probe_pk = PKPipeline(loader, db.classes, Config(dict(pk_config)),
-                              seed=1)
-        for _ in range(10):
-            next(probe_pk)
-        pk_rate = 1000 / (time.perf_counter() - t0)
+        pk_rate = {}
+        for off in (False, True):
+            with native_off(native) if off else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                probe_pk = PKPipeline(loader, db.classes,
+                                      Config(dict(pk_config)), seed=1)
+                for _ in range(10):
+                    next(probe_pk)
+                pk_rate[off] = 1000 / (time.perf_counter() - t0)
         trainer = SoftmaxTrainer(train_config(), VGGFACE2_CLASSES,
                                  device='cuda')
         state = trainer.init_state(seed=0)
@@ -3415,11 +3477,14 @@ def slice13_phases(rng, context):
         require(np.isfinite(entropies).all() and last < first,
                 f'cross-entropy not falling from files: {first} -> {last}')
         require(counts == only(), f'training launched kernels: {counts}')
-        print(f'  on {smi}: the loader alone {pk_rate:.1f} img/s; 20 steps '
-              f'from files {run_s:.3f} s = {2000 / run_s:.1f} img/s (phase '
-              f'25 in memory: {100e3 / context["train_ms"]:.1f} img/s as '
-              f'issued); the loader\'s wait a step {1e3 * np.mean(waits):.1f}'
-              f' ms (max {1e3 * max(waits):.1f})')
+        print(f'  on {smi}: the loader alone {pk_rate[False]:.1f} img/s '
+              f'(the library off, PIL: {pk_rate[True]:.1f} img/s = '
+              f'{1e5 / pk_rate[True]:.1f} ms a batch, all of which a step '
+              f'waits there: that path decodes in next(), nothing ahead); '
+              f'20 steps from files {run_s:.3f} s = {2000 / run_s:.1f} img/s '
+              f'(phase 25 in memory: {100e3 / context["train_ms"]:.1f} img/s '
+              f'as issued); the loader\'s wait a step '
+              f'{1e3 * np.mean(waits):.1f} ms (max {1e3 * max(waits):.1f})')
         del trainer, state
 
         # 48. detect from files
@@ -3427,14 +3492,6 @@ def slice13_phases(rng, context):
               '1080x1440) -> FaceDetector(image_shapes=[(480, 640), (540, '
               '720)]).detect_files, batches of 16; then FacePipeline'
               '.process_files on the 480x640 half, batches of 8 (cuda)')
-        scenes = Path(tmp) / 'scenes'
-        scenes.mkdir()
-        big, _, _ = detection_scenes(48, 32, BIG_SCENE, 30, 150)
-        big = np.repeat(np.repeat(big, 2, axis=1), 2, axis=2)
-        paths = ([write_image_file(scenes / f's{i:02d}', img)
-                  for i, img in enumerate(context['images'][:32])]
-                 + [write_image_file(scenes / f'b{i:02d}', img)
-                    for i, img in enumerate(big)])
         det = FaceDetector(image_shapes=[SCENE, BIG_SCENE], device='cuda')
         det.detect_files(paths[:1] + paths[-1:], batch_size=16)  # build
         reset_launches()
@@ -3450,12 +3507,21 @@ def slice13_phases(rng, context):
                 f'got {counts}')
         # the cascade one batch at a time on the same decoded canvases
         worst_box = worst_score = 0.0
-        decode_ms, cascade_ms, n_found = [], [], 0
+        decode_ms, pil_ms, cascade_ms, n_found = [], [], [], 0
+        worst_pil = 0
         for start in range(0, 64, 16):
             t1 = time.perf_counter()
             decoded = [letterbox.letterbox_file(p, det.route_shape)
                        for p in paths[start:start + 16]]
             decode_ms.append(1e3 * (time.perf_counter() - t1))
+            with native_off(native):
+                t1 = time.perf_counter()
+                by_pil = [letterbox.letterbox_file(p, det.route_shape)
+                          for p in paths[start:start + 16]]
+                pil_ms.append(1e3 * (time.perf_counter() - t1))
+            for (canvas, *place), (want, *want_place) in zip(decoded, by_pil):
+                require(place == want_place, 'another placement through PIL')
+                worst_pil = max(worst_pil, max_diff(canvas, want))
             backend = det.backend_for(decoded[0][0].shape[:2])
             batch = np.stack([canvas for canvas, _, _ in decoded])
             torch.cuda.synchronize()
@@ -3484,14 +3550,17 @@ def slice13_phases(rng, context):
         print(f'  decoder: {decoder}; {n_found} faces in 64 files, the '
               f'same as the cascade one batch at a time on the decoded '
               f'canvases: boxes within {worst_box:.1f} px (pixel-rounded), '
-              f'scores within {worst_score:.4f}; kernel launches {counts}')
+              f'scores within {worst_score:.4f}; kernel launches {counts}; '
+              f'the canvases through PIL max |d| {worst_pil}')
         require(n_found >= 64 and worst_box <= 2 and worst_score <= 0.02,
                 f'detect_files off the canvases: {n_found} faces, boxes '
                 f'{worst_box} px, scores {worst_score}')
+        require(worst_pil == 0, 'the canvases differ through PIL')
         print(f'  on {smi}: detect_files {files_s:.3f} s = '
               f'{64 / files_s:.1f} scenes/s; a batch of 16 decoded '
               f'(letterbox_file, serial) in {spread(decode_ms)} ms '
-              f'(480x640 | 1080x1440), the cascade on it in '
+              f'(480x640 | 1080x1440; the library off, PIL: '
+              f'{spread(pil_ms)} ms), the cascade on it in '
               f'{spread(cascade_ms)} ms')
 
         pipe = FacePipeline(facenet, image_shape=SCENE, align='landmarks')
@@ -3536,6 +3605,7 @@ def main():
         InceptionResnetV1, init_variables)
     from facenet_tpu_torch.detectors.mtcnn import pnet
     from facenet_tpu_torch.ops import cuda_build, pair_counts, stem, warp
+    from facenet_tpu_torch.tools import probe_native
     from facenet_tpu_torch.utils.timing import card_line, cuda_ms
     from facenet_tpu_torch.utils.timing import spread as _spread
 
@@ -3547,8 +3617,8 @@ def main():
     print(smi)
     print(f'torch {torch.__version__} cuda {torch.version.cuda} '
           f'python {sys.version.split()[0]}')
-    probe = native_probe()
-    print(f'native image library: {probe[0]}')
+    probe = probe_native.summary()
+    print(f'native image library: {probe}')
 
     # 2. build every kernel, one nvcc each, all started together
     t0 = time.monotonic()

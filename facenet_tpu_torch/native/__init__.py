@@ -7,11 +7,21 @@ a few batches ahead of the consumer. Both are copies of the JAX package's
 ``facenet_tpu/native`` sources, built here by the port itself: at first use
 g++ compiles them with the JAX package's flags into
 ``facenet_tpu_torch/_build/``, under a name that hashes the sources, the
-flags and the host CPU (``-march=native`` code built on another machine
-must never load).
+build's flags and libraries and the host CPU (``-march=native`` code built
+on another machine must never load).
+
+Two builds, tried in this order (`build`):
+  * 'system': the JAX package's build, against the system's libjpeg and
+    libpng headers and ``-ljpeg -lpng -lz``;
+  * 'pillow', only where the first fails (a machine with no libjpeg or
+    libpng development files): the port's copy of the ABI headers in
+    ``include/`` (libjpeg 6.2, libpng 1.6), linked against the
+    libjpeg-turbo and libpng16 that the installed Pillow wheel carries in
+    ``pillow.libs/``, found without importing PIL.
 
 Public surface, with the JAX package's names:
-  * available() -> bool, and build_error() -> the compiler's message;
+  * available() -> bool, build_error() -> every failed build's message,
+    library_source() -> 'system' or 'pillow:<dir>';
   * decode_image(path, size, mode) -> uint8 [H, W, 3] or None;
   * decode_image_native_size(path), probe_image(path);
   * letterbox_array(image, shape), letterbox_geometry(h, w, shape);
@@ -20,16 +30,17 @@ Public surface, with the JAX package's names:
     library since the last reset, so that a run can show that a path went
     through it.
 
-Where the library cannot be built (no g++, libjpeg or libpng), the
-loaders of `dataset`, the letterbox and the detectors use PIL, and the
-first failed load logs the compiler's message at WARNING; every function
-here raises `RuntimeError` instead.
+Where neither build succeeds (no g++, or neither the system's libjpeg and
+libpng nor Pillow's), the loaders of `dataset`, the letterbox and the
+detectors use PIL, and the first failed load logs both builds' messages at
+WARNING; every function here raises `RuntimeError` instead.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import platform
 import subprocess
@@ -46,6 +57,11 @@ SOURCES = ('imageio.cc', 'loader.cc')
 # detectors/mtcnn/letterbox.py restates
 CXX_FLAGS = ('-O3', '-march=native', '-fPIC', '-std=c++17')
 LIBS = ('-ljpeg', '-lpng', '-lz', '-lpthread')
+VARIANTS = ('system', 'pillow')
+# the port's copy of the libjpeg 6.2 and libpng 1.6 headers (include/README)
+INCLUDE = _DIR / 'include'
+# (file stem in pillow.libs, the soname's major version the headers are for)
+PILLOW_ABI = (('libjpeg', '62'), ('libpng16', '16'))
 
 # Geometry modes (must match imageio.cc fn_decode_image).
 MODE_CROP_OR_PAD = 0
@@ -55,6 +71,7 @@ MODE_LETTERBOX = 2
 _lib = None
 _lib_lock = threading.Lock()
 _build_error = None
+_source = None
 _rows = 0
 _rows_lock = threading.Lock()
 
@@ -79,18 +96,77 @@ def cpu_model():
     return f'{model or platform.processor() or platform.machine()}|{flags}'
 
 
-def library_path():
-    """The shared library for these sources and flags on this host's CPU
-    (named by their hash, so a change to any of them builds anew)."""
+def pillow_libs(directory=None):
+    """The libjpeg-turbo and libpng16 that a Pillow wheel carries.
+
+    :param directory: a ``pillow.libs`` directory; by default the installed
+        Pillow's, found through importlib without importing PIL
+    :return: (the directory, libjpeg's path, libpng's path), resolved
+    :raises RuntimeError: no Pillow, no such library in the directory, or
+        only libraries of another major ABI than the headers in include/
+        (the wheel names each library by its soname, ``.so.<major>...``)
+    """
+    if directory is None:
+        try:
+            spec = importlib.util.find_spec('PIL')
+        except ValueError:      # sys.modules['PIL'] is None or has no spec
+            spec = None
+        if spec is None or not spec.origin:
+            raise RuntimeError('no Pillow is installed')
+        directory = Path(spec.origin).parent.parent / 'pillow.libs'
+    directory = Path(directory).resolve()
+    found = [directory]
+    for stem, major in PILLOW_ABI:
+        names = sorted(directory.glob(f'{stem}-*.so.*'))
+        if not names:
+            raise RuntimeError(f'no {stem}-*.so.* in {directory}')
+        same = [p for p in names
+                if p.name.partition('.so.')[2].split('.')[0] == major]
+        if not same:
+            raise RuntimeError(
+                f'{", ".join(p.name for p in names)} in {directory}: '
+                f'another ABI than the headers in {INCLUDE} ({stem} '
+                f'.so.{major})')
+        found.append(same[0])
+    return tuple(found)
+
+
+def _plan(variant, system_args, pillow_dir):
+    """(g++ arguments after the sources, `library_source()`'s value, the
+    library's path) of one build."""
+    if variant == 'system':
+        args, source, headers = tuple(system_args), 'system', ()
+    elif variant == 'pillow':
+        directory, jpeg, png = pillow_libs(pillow_dir)
+        # the port's sources call no zlib, but Pillow's libpng needs
+        # libz.so.1, and a machine without zlib's development files has no
+        # libz.so link
+        args = (f'-I{INCLUDE}', str(jpeg), str(png), '-l:libz.so.1',
+                '-lpthread', f'-Wl,-rpath,{directory}')
+        source, headers = f'pillow:{directory}', sorted(INCLUDE.glob('*.h'))
+    else:
+        raise ValueError(f'unknown build {variant!r}, not one of {VARIANTS}')
     key = hashlib.sha1()
-    for name in SOURCES:
-        key.update((_DIR / name).read_bytes())
-    key.update(' '.join(CXX_FLAGS + LIBS).encode())
+    for path in [_DIR / name for name in SOURCES] + list(headers):
+        key.update(path.read_bytes())
+    key.update(' '.join((variant,) + CXX_FLAGS + args).encode())
     key.update(cpu_model().encode())
-    return BUILD_DIR / f'libfacenet_native-{key.hexdigest()[:12]}.so'
+    name = f'libfacenet_native-{key.hexdigest()[:12]}.so'
+    return args, source, BUILD_DIR / name
 
 
-def _build(path):
+def library_path(variant='system', system_args=LIBS, pillow_dir=None):
+    """The shared library of one build (`build`'s arguments) on this host's
+    CPU, named by the hash of the sources, the headers, the flags, the
+    resolved libraries and the CPU: a change to any of them, a moved
+    Pillow included, builds anew, and no two builds share a file.
+
+    :raises RuntimeError: for 'pillow', as `pillow_libs`
+    """
+    return _plan(variant, system_args, pillow_dir)[2]
+
+
+def _compile(path, args):
     """Compile the library into `path` unless it is there.
 
     Safe across processes (pytest-xdist workers, training ranks): an
@@ -111,7 +187,7 @@ def _build(path):
                 return
             tmp = path.with_name(f'{path.name}.{os.getpid()}.tmp')
             cmd = ['g++', *CXX_FLAGS, '-shared', '-o', str(tmp),
-                   *(str(_DIR / name) for name in SOURCES), *LIBS]
+                   *(str(_DIR / name) for name in SOURCES), *args]
             try:
                 proc = subprocess.run(cmd, capture_output=True, text=True)
                 if proc.returncode != 0:
@@ -124,6 +200,34 @@ def _build(path):
                     tmp.unlink()
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def build(variants=VARIANTS, system_args=LIBS, pillow_dir=None):
+    """Build the library: each of `variants` in turn until one compiles.
+
+    :param variants: the builds to try, in order: 'system' (the JAX
+        package's build) and 'pillow' (include/ and Pillow's libraries)
+    :param system_args: the system build's g++ arguments after the
+        sources: the JAX package's libraries
+    :param pillow_dir: the ``pillow.libs`` directory the Pillow build links
+        against; by default the installed Pillow's
+    :return: (the library's path, `library_source()`'s value for it)
+    :raises RuntimeError: no build succeeded; the message holds each
+        failed build's, in order
+    """
+    errors = []
+    for variant in variants:
+        try:
+            args, source, path = _plan(variant, system_args, pillow_dir)
+            _compile(path, args)
+            return path, source
+        except RuntimeError as exc:
+            errors.append(f'the {variant} build: {exc}')
+            if variant != variants[-1]:
+                from facenet_tpu_torch.logging import logger
+                logger.info('native image library: %s; trying the next '
+                            'build', errors[-1])
+    raise RuntimeError('\n'.join(errors))
 
 
 def _bind(lib):
@@ -162,14 +266,14 @@ def _bind(lib):
 
 
 def _load():
-    global _lib, _build_error
+    global _lib, _build_error, _source
     with _lib_lock:
         if _lib is not None or _build_error is not None:
             return _lib
         try:
-            path = library_path()
-            _build(path)
+            path, source = build()
             _lib = _bind(ctypes.CDLL(str(path)))
+            _source = source
         except (OSError, RuntimeError) as exc:
             _build_error = str(exc)
             from facenet_tpu_torch.logging import logger
@@ -191,9 +295,16 @@ def available():
 
 
 def build_error():
-    """The build's or the load's error message, or None."""
+    """Every failed build's message, or the load's, or None."""
     _load()
     return _build_error
+
+
+def library_source():
+    """Which build loaded: 'system' (the system's libjpeg and libpng) or
+    'pillow:<dir>' (Pillow's, in <dir>); None where none did."""
+    _load()
+    return _source
 
 
 def _count(n):

@@ -1,6 +1,7 @@
 """The port stands alone: no module of facenet_tpu_torch, nor chip_smoke.py,
-imports JAX or anything of facenet_tpu; its entry points do not fall back
-to the CPU when no GPU was asked for the CPU."""
+imports JAX or anything of facenet_tpu, nor PIL when it is imported; its
+entry points do not fall back to the CPU when no GPU was asked for the
+CPU."""
 
 import json
 import os
@@ -24,7 +25,9 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m in ('jax', 'flax') or m.startswith(('jax.', 'flax.'))
              or m == 'facenet_tpu' or m.startswith('facenet_tpu.'))
-print(json.dumps({'count': len(names), 'bad': bad, 'names': names}))
+pil = sorted(m for m in sys.modules if m.split('.')[0] == 'PIL')
+print(json.dumps({'count': len(names), 'bad': bad, 'pil': pil,
+                  'names': names}))
 """
 
 TOOLS = ('try_pnet_v3', 'try_pallas_pnet', 'try_stem_flat',
@@ -53,6 +56,7 @@ def test_port_imports_no_jax_and_no_facenet_tpu():
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result['count'] >= 15
     assert result['bad'] == []
+    assert result['pil'] == []      # the card's machine may have no PIL
     for name in ('ops.stem', 'ops.cuda_build', 'utils.timing',
                  'detectors.mtcnn.pnet', 'models.irv1_fast', 'tools',
                  *(f'tools.{tool}' for tool in TOOLS), 'lfw',
@@ -69,7 +73,8 @@ def test_port_imports_no_jax_and_no_facenet_tpu():
                  'detectors.frcnn.detector', 'train.mtcnn',
                  'apps.train_detector', 'models', 'models.import_weights',
                  'utils.profiling', 'utils.debug', 'apps.export_model',
-                 'apps.model_info', 'apps.dataset', 'native'):
+                 'apps.model_info', 'apps.dataset', 'native',
+                 'tools.probe_native'):
         assert f'facenet_tpu_torch.{name}' in result['names'], name
 
 

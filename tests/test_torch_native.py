@@ -2,11 +2,14 @@
 paths that decode through it, against the JAX package's
 (``facenet_tpu.native``) on the same seeded files.
 
-- the library: every binding byte-equal to JAX's build (max |d| = 0) on
-  JPEG and PNG, grayscale, RGBA, palette and 16-bit PNG, 1-pixel sides, a
-  CMYK JPEG, a GIF, a truncated and a corrupt file; the batch loader's
-  images and ok flags; the count of rows decoded; the build's key and its
-  lock;
+- the library, from each of its two builds (the system's libjpeg and
+  libpng, and Pillow's with the port's headers): every binding byte-equal
+  to JAX's build (max |d| = 0) on JPEG and PNG, grayscale, RGBA, palette
+  and 16-bit PNG, 1-pixel sides, a CMYK JPEG, a GIF, a truncated and a
+  corrupt file; the batch loader's images and ok flags; the count of rows
+  decoded;
+- the build: its key and its lock, the Pillow build where the system's
+  fails, both builds' messages where both fail; the probe tool;
 - the loaders: `BatchLoader` and `PKPipeline` on the native path yield
   JAX's images, labels and order, resume from `state()`, split a batch
   over two ranks by `rows=`, load a GIF and a CMYK JPEG through the PIL
@@ -21,6 +24,9 @@ Each test skips only where a native library cannot be built, as
 tests/test_native.py does.
 """
 
+import ctypes
+import functools
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -45,6 +51,18 @@ def libraries():
                     f'{native.build_error()}')
     if not jnative.available():
         pytest.skip('the JAX package\'s native library is not available')
+
+
+@pytest.fixture(scope='module', params=native.VARIANTS)
+def build(request):
+    """The port's library from one build (`native.build`), in place of the
+    one the module loaded, while the test runs; yields its source."""
+    path, source = native.build(variants=(request.param,))
+    lib = native._bind(ctypes.CDLL(str(path)))
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(native, '_lib', lib)
+        patch.setattr(native, '_source', source)
+        yield source
 
 
 def _smooth(rng, h, w, channels=3):
@@ -102,7 +120,7 @@ def _same(got, want):
 
 @pytest.mark.parametrize('mode', [native.MODE_CROP_OR_PAD, native.MODE_RESIZE,
                                   native.MODE_LETTERBOX])
-def test_decode_image_equals_jax(files, mode):
+def test_decode_image_equals_jax(build, files, mode):
     """Every file at four sizes in each mode: the same bytes, or None on
     both sides (CMYK, GIF, 16-bit and corrupt files as JAX's build reads
     them)."""
@@ -114,7 +132,7 @@ def test_decode_image_equals_jax(files, mode):
     assert native.decode_image(files['bad.jpg'], 64, mode) is None
 
 
-def test_native_size_and_probe_equal_jax(files):
+def test_native_size_and_probe_equal_jax(build, files):
     for name, path in files.items():
         assert _same(native.decode_image_native_size(path),
                      jnative.decode_image_native_size(path)), name
@@ -127,7 +145,7 @@ def test_native_size_and_probe_equal_jax(files):
 
 
 @pytest.mark.parametrize('seed', range(3))
-def test_letterbox_array_and_geometry_equal_jax(seed):
+def test_letterbox_array_and_geometry_equal_jax(build, seed):
     """Random (image, target) sizes, down and up, and 1-pixel sides."""
     rng = np.random.RandomState(seed)
     sizes = [tuple(int(v) for v in rng.randint(1, 500, 4)) for _ in range(10)]
@@ -145,7 +163,7 @@ def test_letterbox_array_and_geometry_equal_jax(seed):
 
 @pytest.mark.parametrize('mode,size', [(native.MODE_CROP_OR_PAD, 64),
                                        (native.MODE_LETTERBOX, (96, 128))])
-def test_batch_loader_equals_jax(files, mode, size):
+def test_batch_loader_equals_jax(build, files, mode, size):
     """Batches with repeats and unreadable rows, two in flight: the same
     images and ok flags as JAX's loader."""
     paths = list(files.values())
@@ -169,7 +187,7 @@ def test_batch_loader_equals_jax(files, mode, size):
     assert ok is not None and not want_ok[-1] and bad == len(paths) - 1
 
 
-def test_rows_decoded_counts_native_rows_only(files):
+def test_rows_decoded_counts_native_rows_only(build, files):
     native.reset_rows_decoded()
     native.decode_image(files['rgb.png'], 32)
     native.decode_image(files['bad.jpg'], 32)
@@ -219,6 +237,99 @@ def test_build_key_names_the_cpu_and_builds_once_under_a_lock(tmp_path):
                   if not p.name.endswith('.lock')) == [name]
 
 
+# the system build's arguments with an include that does not exist: g++
+# fails at once
+_NO_SYSTEM = ('-include', 'facenet_no_such_header.h')
+
+
+@pytest.fixture
+def unloaded(monkeypatch):
+    """The module as before its first load, restored after the test."""
+    monkeypatch.setattr(native, '_lib', None)
+    monkeypatch.setattr(native, '_build_error', None)
+    monkeypatch.setattr(native, '_source', None)
+
+
+def test_pillow_build_is_chosen_where_the_system_build_fails(unloaded,
+                                                             monkeypatch,
+                                                             files):
+    """Where the system build fails, the module loads the build against
+    Pillow's libraries, reports it by `library_source()` and decodes as
+    JAX's build does."""
+    monkeypatch.setattr(native, 'build', functools.partial(
+        native.build, system_args=_NO_SYSTEM))
+    assert native.available() and native.build_error() is None
+    directory, jpeg, png = native.pillow_libs()
+    assert jpeg.name.startswith('libjpeg-') and '.so.62' in jpeg.name
+    assert png.name.startswith('libpng16-') and '.so.16' in png.name
+    assert native.library_source() == f'pillow:{directory}'
+    for name in ('rgb_1080x1440.jpg', 'palette.png', 'cmyk.jpg'):
+        assert _same(native.decode_image(files[name], (480, 640),
+                                         native.MODE_LETTERBOX),
+                     jnative.decode_image(files[name], (480, 640),
+                                          native.MODE_LETTERBOX)), name
+
+
+def test_builds_hash_to_different_libraries(tmp_path):
+    """The two builds, the system build with other arguments and the
+    Pillow build against a moved copy of Pillow's libraries each name
+    another file."""
+    _, jpeg, png = native.pillow_libs()
+    moved = tmp_path / 'pillow.libs'
+    moved.mkdir()
+    for lib in (jpeg, png):
+        shutil.copy(lib, moved / lib.name)
+    names = [native.library_path('system').name,
+             native.library_path('pillow').name,
+             native.library_path('system', system_args=_NO_SYSTEM).name,
+             native.library_path('pillow', pillow_dir=moved).name]
+    assert len(set(names)) == 4, names
+    assert native.library_path('pillow') == native.library_path('pillow')
+
+
+@pytest.mark.parametrize('libs', [(), ('libjpeg-0a1b2c3d.so.8.3.2',
+                                       'libpng16-0a1b2c3d.so.16.56.0')])
+def test_build_error_holds_both_messages(unloaded, monkeypatch, tmp_path,
+                                         files, libs):
+    """Both builds fail (the system's include missing; Pillow's directory
+    empty, or holding a libjpeg of another ABI): `build_error()` holds both
+    messages in order, no source is reported, and the bindings raise."""
+    fake = tmp_path / 'pillow.libs'
+    fake.mkdir()
+    for name in libs:
+        (fake / name).write_bytes(b'')
+    monkeypatch.setattr(native, 'BUILD_DIR', tmp_path / 'build')
+    monkeypatch.setattr(native, 'build', functools.partial(
+        native.build, system_args=_NO_SYSTEM, pillow_dir=fake))
+    assert not native.available()
+    error = native.build_error()
+    system, _, pillow = error.partition('\nthe pillow build: ')
+    assert system.startswith('the system build: g++ failed')
+    assert 'facenet_no_such_header.h' in system
+    assert pillow == (f'no libjpeg-*.so.* in {fake}' if not libs else
+                      f'{libs[0]} in {fake}: another ABI than the headers '
+                      f'in {native.INCLUDE} (libjpeg .so.62)')
+    assert native.library_source() is None
+    with pytest.raises(RuntimeError, match='native library unavailable'):
+        native.decode_image(files['rgb.png'], 32)
+    assert not (tmp_path / 'build').exists() or not any(
+        p.suffix == '.so' for p in (tmp_path / 'build').iterdir())
+
+
+def test_probe_tool_names_the_build_and_decodes_as_pil(capsys):
+    """`tools/probe_native`: its summary names Pillow's two libraries, and
+    its run reports the loaded build and a decode equal to PIL's."""
+    from facenet_tpu_torch.tools import probe_native
+
+    _, jpeg, png = native.pillow_libs()
+    assert f"Pillow's {jpeg.name} and {png.name}" in probe_native.summary()
+    assert probe_native.main() == 0
+    out = capsys.readouterr().out
+    assert f'library_source() {native.library_source()}' in out
+    assert 'SONAME ' + jpeg.name in out and 'NEEDED libz.so.1' in out
+    assert out.count('.jpg 0') == 4 and out.count('.png 0') == 4
+
+
 # ---------------------------------------------------------------------------
 # the loaders
 # ---------------------------------------------------------------------------
@@ -249,7 +360,7 @@ def _assert_batches_equal(got, want):
         np.testing.assert_array_equal(images, want_images)
 
 
-def test_batch_loader_native_equals_jax_and_resumes(tree):
+def test_batch_loader_native_equals_jax_and_resumes(build, tree):
     """Shuffled over more than two epochs: JAX's images, labels and order;
     a loader made from `state()` after 3 batches continues the run."""
     db = dataset.Database(dataset.DefaultConfig(tree))
@@ -305,7 +416,7 @@ def test_loaders_split_rows_over_two_ranks(tree):
         assert pk.state() == {'seed': 6, 'batch': 3}
 
 
-def test_pk_pipeline_native_equals_jax_and_resumes(tree):
+def test_pk_pipeline_native_equals_jax_and_resumes(build, tree):
     db = dataset.Database(dataset.DefaultConfig(tree))
     jdb = jdataset.Database(jdataset.DefaultConfig(tree))
     pk_config = {'nrof_classes_per_batch': 3, 'nrof_examples_per_class': 2}
