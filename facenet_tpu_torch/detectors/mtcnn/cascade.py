@@ -34,6 +34,7 @@ from facenet_tpu_torch.device import resolve_device
 from facenet_tpu_torch.ops.image_ops import align_by_landmarks, crop_and_resize
 from facenet_tpu_torch.ops.nms import (apply_bbox_regression, batched_nms_mask,
                                        square_boxes, top_k_boxes)
+from facenet_tpu_torch.utils import profiling
 
 PNET_CELL = 12
 PNET_STRIDE = 2
@@ -230,84 +231,96 @@ class MTCNN:
     @torch.inference_mode()
     def _detect(self, images):
         """uint8 [B, H, W, 3] tensor on this device -> output dict of
-        tensors (see `detect_batch`)."""
-        images_f32 = images.float()
+        tensors (see `detect_batch`). The three stages are the spans
+        ``mtcnn.pnet``, ``mtcnn.rnet`` and ``mtcnn.onet``
+        (`utils.profiling`)."""
         b = images.shape[0]
 
         # ---- stage 1: P-Net over the pyramid
-        levels = self.pyramid_levels(normalize_crops(images_f32).to(
-            torch.bfloat16))
-        if self.pnet_impl == 'pyramid':
-            heads = pnet_kernel.pnet_forward_pyramid(self.pnet, levels)
-        elif self.pnet_impl == 'flat':
-            # the level's planes as they lie: the pitch is the true width
-            heads = [pnet_kernel.pnet_forward_flat(
-                self.pnet, level.view(b, 3, -1), *level.shape[2:],
-                level.shape[3]) for level in levels]
-        else:
-            heads = [self.pnet.forward_nchw(level) for level in levels]
-        per_level = [self._pnet_select(probs, reg, level)
-                     for level, (probs, reg) in enumerate(heads)]
-        overflow = {'pnet_level': sum(ov for *_, ov in per_level)}
-        boxes = torch.cat([bx for bx, *_ in per_level], dim=1)
-        scores = torch.cat([sc for _, sc, *_ in per_level], dim=1)
-        valid = torch.cat([va for _, _, va, _ in per_level], dim=1)
+        with profiling.annotate('mtcnn.pnet'):
+            images_f32 = images.float()
+            levels = self.pyramid_levels(normalize_crops(images_f32).to(
+                torch.bfloat16))
+            if self.pnet_impl == 'pyramid':
+                heads = pnet_kernel.pnet_forward_pyramid(self.pnet, levels)
+            elif self.pnet_impl == 'flat':
+                # the level's planes as they lie: the pitch is the true
+                # width
+                heads = [pnet_kernel.pnet_forward_flat(
+                    self.pnet, level.view(b, 3, -1), *level.shape[2:],
+                    level.shape[3]) for level in levels]
+            else:
+                heads = [self.pnet.forward_nchw(level) for level in levels]
+            per_level = [self._pnet_select(probs, reg, level)
+                         for level, (probs, reg) in enumerate(heads)]
+            overflow = {'pnet_level': sum(ov for *_, ov in per_level)}
+            boxes = torch.cat([bx for bx, *_ in per_level], dim=1)
+            scores = torch.cat([sc for _, sc, *_ in per_level], dim=1)
+            valid = torch.cat([va for _, _, va, _ in per_level], dim=1)
 
-        # cross-level NMS 0.7 on the top-K_pnet proposals
-        overflow['pnet'] = _overflow_count(valid, self.k_pnet)
-        boxes, scores, valid = top_k_boxes(boxes, scores, valid, self.k_pnet)
-        valid = valid & batched_nms_mask(boxes, scores, valid, 0.7,
-                                         algorithm='fast')
-        boxes = square_boxes(boxes)
+            # cross-level NMS 0.7 on the top-K_pnet proposals
+            overflow['pnet'] = _overflow_count(valid, self.k_pnet)
+            boxes, scores, valid = top_k_boxes(boxes, scores, valid,
+                                               self.k_pnet)
+            valid = valid & batched_nms_mask(boxes, scores, valid, 0.7,
+                                             algorithm='fast')
+            boxes = square_boxes(boxes)
 
         # ---- stage 2: R-Net on 24x24 crops
-        overflow['rnet'] = _overflow_count(valid, self.k_rnet)
-        boxes, scores, valid = top_k_boxes(boxes, scores, valid, self.k_rnet)
-        crops = crop_and_resize(images_f32, boxes, 24)
-        probs, reg = self.rnet(normalize_crops(crops.reshape(-1, 24, 24, 3)))
-        probs = probs.reshape(b, -1)
-        reg = reg.reshape(b, -1, 4)
-        valid = valid & (probs >= self.thresholds[1])
-        scores = probs
-        valid = valid & batched_nms_mask(boxes, scores, valid, 0.7,
-                                         algorithm='fast')
-        boxes = square_boxes(apply_bbox_regression(boxes, reg))
+        with profiling.annotate('mtcnn.rnet'):
+            overflow['rnet'] = _overflow_count(valid, self.k_rnet)
+            boxes, scores, valid = top_k_boxes(boxes, scores, valid,
+                                               self.k_rnet)
+            crops = crop_and_resize(images_f32, boxes, 24)
+            probs, reg = self.rnet(normalize_crops(
+                crops.reshape(-1, 24, 24, 3)))
+            probs = probs.reshape(b, -1)
+            reg = reg.reshape(b, -1, 4)
+            valid = valid & (probs >= self.thresholds[1])
+            scores = probs
+            valid = valid & batched_nms_mask(boxes, scores, valid, 0.7,
+                                             algorithm='fast')
+            boxes = square_boxes(apply_bbox_regression(boxes, reg))
 
         # ---- stage 3: O-Net on 48x48 crops
-        overflow['onet'] = _overflow_count(valid, self.k_onet)
-        boxes, scores, valid = top_k_boxes(boxes, scores, valid, self.k_onet)
-        crops = crop_and_resize(images_f32, boxes, 48)
-        probs, reg, lmk = self.onet(normalize_crops(
-            crops.reshape(-1, 48, 48, 3)))
-        probs = probs.reshape(b, -1)
-        reg = reg.reshape(b, -1, 4)
-        lmk = lmk.reshape(b, -1, 10)
-        valid = valid & (probs >= self.thresholds[2])
-        scores = probs
+        with profiling.annotate('mtcnn.onet'):
+            overflow['onet'] = _overflow_count(valid, self.k_onet)
+            boxes, scores, valid = top_k_boxes(boxes, scores, valid,
+                                               self.k_onet)
+            crops = crop_and_resize(images_f32, boxes, 48)
+            probs, reg, lmk = self.onet(normalize_crops(
+                crops.reshape(-1, 48, 48, 3)))
+            probs = probs.reshape(b, -1)
+            reg = reg.reshape(b, -1, 4)
+            lmk = lmk.reshape(b, -1, 10)
+            valid = valid & (probs >= self.thresholds[2])
+            scores = probs
 
-        # landmarks are predicted relative to the (square) box
-        w = (boxes[..., 2] - boxes[..., 0])[..., None]
-        h = (boxes[..., 3] - boxes[..., 1])[..., None]
-        lx = boxes[..., 0:1] + lmk[..., 0:5] * w
-        ly = boxes[..., 1:2] + lmk[..., 5:10] * h
-        landmarks = torch.stack([lx, ly], dim=-1)              # [B, K, 5, 2]
+            # landmarks are predicted relative to the (square) box
+            w = (boxes[..., 2] - boxes[..., 0])[..., None]
+            h = (boxes[..., 3] - boxes[..., 1])[..., None]
+            lx = boxes[..., 0:1] + lmk[..., 0:5] * w
+            ly = boxes[..., 1:2] + lmk[..., 5:10] * h
+            landmarks = torch.stack([lx, ly], dim=-1)          # [B, K, 5, 2]
 
-        boxes = apply_bbox_regression(boxes, reg)
-        valid = valid & batched_nms_mask(boxes, scores, valid, 0.7,
-                                         mode='min')
+            boxes = apply_bbox_regression(boxes, reg)
+            valid = valid & batched_nms_mask(boxes, scores, valid, 0.7,
+                                             mode='min')
 
-        # valid detections to the front, best score first (stable, as
-        # jnp.argsort): consumers read the first `num_faces` slots
-        order = torch.argsort(-torch.where(valid, scores, -1.0), dim=-1,
-                              stable=True)
-        boxes = torch.gather(boxes, 1, order[..., None].expand_as(boxes))
-        scores = torch.gather(scores, 1, order)
-        landmarks = torch.gather(
-            landmarks, 1, order[..., None, None].expand_as(landmarks))
-        valid = torch.gather(valid, 1, order)
+            # valid detections to the front, best score first (stable, as
+            # jnp.argsort): consumers read the first `num_faces` slots
+            order = torch.argsort(-torch.where(valid, scores, -1.0), dim=-1,
+                                  stable=True)
+            boxes = torch.gather(boxes, 1,
+                                 order[..., None].expand_as(boxes))
+            scores = torch.gather(scores, 1, order)
+            landmarks = torch.gather(
+                landmarks, 1, order[..., None, None].expand_as(landmarks))
+            valid = torch.gather(valid, 1, order)
+            scores = torch.where(valid, scores, 0.0)
         return {
             'boxes': boxes,                  # [B, K_onet, 4] (x1, y1, x2, y2)
-            'scores': torch.where(valid, scores, 0.0),
+            'scores': scores,
             'landmarks': landmarks,          # [B, K_onet, 5, 2]
             'valid': valid,
             # per-image candidates lost to each capacity

@@ -16,6 +16,7 @@ from facenet_tpu_torch.dataset import (  # noqa: F401  (the reference's name)
     equal_batches_input_pipeline)
 from facenet_tpu_torch.logging import logger
 from facenet_tpu_torch.statistics import split_embeddings
+from facenet_tpu_torch.utils import profiling
 
 
 def inputs(config):
@@ -78,7 +79,9 @@ def evaluate_embeddings(forward_fn, batches, renormalize=True, mesh=None):
     batch n's result is fetched, so loading the next batch on the host
     overlaps the device computing this one. A CUDA result starts its copy
     to the host right after its dispatch, and the fetch waits for that copy
-    alone, not for the batch queued behind it.
+    alone, not for the batch queued behind it. Each fetch is the
+    ``embeddings.fetch`` span, the concatenation and renormalization after
+    the last batch ``embeddings.finish`` (`utils.profiling`).
     """
     if mesh is not None:
         forward_fn = sharded_forward(forward_fn, mesh)
@@ -94,12 +97,13 @@ def evaluate_embeddings(forward_fn, batches, renormalize=True, mesh=None):
         return out, None
 
     def fetch(out, copied, labels):
-        if copied is not None:
-            copied.synchronize()
-        if isinstance(out, torch.Tensor):
-            out = out.numpy()
-        embeddings_.append(np.asarray(out))
-        labels_.append(np.asarray(labels))
+        with profiling.annotate('embeddings.fetch'):
+            if copied is not None:
+                copied.synchronize()
+            if isinstance(out, torch.Tensor):
+                out = out.numpy()
+            embeddings_.append(np.asarray(out))
+            labels_.append(np.asarray(labels))
 
     pending = deque()
     for images, labels in batches:
@@ -109,11 +113,11 @@ def evaluate_embeddings(forward_fn, batches, renormalize=True, mesh=None):
     while pending:
         fetch(*pending.popleft())
 
-    embeddings = np.concatenate(embeddings_)
-    labels = np.concatenate(labels_)
-
-    if renormalize:
-        embeddings = renormalized(embeddings)
+    with profiling.annotate('embeddings.finish'):
+        embeddings = np.concatenate(embeddings_)
+        labels = np.concatenate(labels_)
+        if renormalize:
+            embeddings = renormalized(embeddings)
 
     return embeddings, labels
 

@@ -39,6 +39,7 @@ from facenet_tpu_torch.models.quantize import (DEFAULT_SKIP, _Calibration,
 from facenet_tpu_torch.ops import int8_conv
 from facenet_tpu_torch.ops.preprocessing import image_processing
 from facenet_tpu_torch.ops.stem import stem_forward
+from facenet_tpu_torch.utils import profiling
 
 # entries an int8 quantizer must leave in bf16 when the fused stem is to
 # run: the kernel takes bf16 weights
@@ -368,8 +369,10 @@ class FastEmbedder:
     def __call__(self, images):
         """uint8 [B, H, W, 3] (numpy or tensor) -> [B, D] float32 tensor on
         this embedder's device, not synchronized."""
-        images = torch.as_tensor(images).to(self.device, non_blocking=True)
-        with torch.inference_mode():
+        with profiling.annotate('facenet.h2d'):
+            images = torch.as_tensor(images).to(self.device,
+                                                non_blocking=True)
+        with profiling.annotate('facenet.forward'), torch.inference_mode():
             return fast_forward(self.params, self.cfg, images,
                                 self.image_size, self.normalization,
                                 self.dtype, normalize=self.normalize,

@@ -25,6 +25,7 @@ from facenet_tpu_torch.models.irv1_fast import (_concat_folded, _conv, _crelu,
                                                 _fold, _scale, to_torch)
 from facenet_tpu_torch.models.quantize import check_mode, quantize_fast_params
 from facenet_tpu_torch.ops.preprocessing import image_processing
+from facenet_tpu_torch.utils import profiling
 
 
 def _fold_numpy(variables, cfg):
@@ -244,8 +245,10 @@ class FastEmbedderV2:
     def __call__(self, images):
         """uint8 [B, H, W, 3] (numpy or tensor) -> [B, D] float32 tensor on
         this embedder's device, not synchronized."""
-        images = torch.as_tensor(images).to(self.device, non_blocking=True)
-        with torch.inference_mode():
+        with profiling.annotate('facenet.h2d'):
+            images = torch.as_tensor(images).to(self.device,
+                                                non_blocking=True)
+        with profiling.annotate('facenet.forward'), torch.inference_mode():
             return fast_forward(self.params, self.cfg, images,
                                 self.image_size, self.normalization,
                                 self.dtype, normalize=self.normalize)

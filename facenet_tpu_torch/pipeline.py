@@ -10,6 +10,10 @@ Alignment modes:
 - 'landmarks': 5-point similarity warp to the canonical template; on the
   card all B x num_faces crops of a batch go through one launch of the
   dense-warp kernel.
+
+Spans (`utils.profiling`): ``pipeline.h2d`` (the scenes' copy),
+``mtcnn.pnet`` / ``.rnet`` / ``.onet`` (the cascade), ``pipeline.align``,
+``pipeline.embed``.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from facenet_tpu_torch.config import Config
+from facenet_tpu_torch.utils import profiling
 
 
 class FacePipeline:
@@ -75,19 +80,23 @@ class FacePipeline:
         from facenet_tpu_torch.ops.image_ops import (align_by_landmarks,
                                                      crop_and_resize)
         k, size = self.num_faces, self.size
-        out = self.backend._detect(images)
-        scenes = images.float()
-        if self.align == 'landmarks':
-            crops = align_by_landmarks(scenes, out['landmarks'][:, :k], size)
-        else:
-            boxes = out['boxes'][:, :k]
-            wh = boxes[..., 2:4] - boxes[..., 0:2]
-            lo = boxes[..., 0:2] - wh * (self.margin / 2)
-            hi = boxes[..., 2:4] + wh * (self.margin / 2)
-            crops = crop_and_resize(scenes, torch.cat([lo, hi], dim=-1), size)
         b = images.shape[0]
-        flat = torch.clamp(crops + 0.5, 0, 255).to(torch.uint8)
-        emb = self.facenet.dispatch(flat.reshape(b * k, size, size, 3))
+        out = self.backend._detect(images)
+        with profiling.annotate('pipeline.align'):
+            scenes = images.float()
+            if self.align == 'landmarks':
+                crops = align_by_landmarks(scenes, out['landmarks'][:, :k],
+                                           size)
+            else:
+                boxes = out['boxes'][:, :k]
+                wh = boxes[..., 2:4] - boxes[..., 0:2]
+                lo = boxes[..., 0:2] - wh * (self.margin / 2)
+                hi = boxes[..., 2:4] + wh * (self.margin / 2)
+                crops = crop_and_resize(scenes, torch.cat([lo, hi], dim=-1),
+                                        size)
+            flat = torch.clamp(crops + 0.5, 0, 255).to(torch.uint8)
+        with profiling.annotate('pipeline.embed'):
+            emb = self.facenet.dispatch(flat.reshape(b * k, size, size, 3))
         return {
             'embeddings': emb.reshape(b, k, -1),
             'boxes': out['boxes'][:, :k],
@@ -101,7 +110,9 @@ class FacePipeline:
         """Enqueue one batch and return its outputs as device tensors,
         not synchronized, so callers can overlap host work (see
         process_files)."""
-        return self._step(self.backend.to_device(images))
+        with profiling.annotate('pipeline.h2d'):
+            images = self.backend.to_device(images)
+        return self._step(images)
 
     def process_batch(self, images):
         """uint8 [B, H, W, 3] scenes -> numpy dict with 'embeddings'

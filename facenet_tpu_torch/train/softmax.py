@@ -27,7 +27,12 @@ statistics, running statistics moved once), the losses, backward, Adam at
 ``train.remat`` the backbone runs under torch.utils.checkpoint, so the
 backward recomputes its activations instead of keeping them. `frozen_bn`
 steps normalize with the running statistics and leave them untouched,
-while every parameter still trains.
+while every parameter still trains. A step is the ``train.step`` span
+(`SoftmaxTrainer.train_epoch`'s `StepTimer`) around ``train.forward``
+(augmentation through the losses), ``train.backward`` (clearing the
+gradients, the backward pass, their average) and ``train.adam`` (the
+learning rate, Adam); placing a batch is ``train.place``
+(`utils.profiling`).
 
 On a (data, model) process grid (`parallel.mesh`, the ``mesh:`` section or
 ``mesh=``) a step computes what the same step computes on one device, as
@@ -342,73 +347,79 @@ def make_train_step(schedule, loss_cfg, augment_cfg=None, image_size=160,
         return model.head(prelogits, dtype), prelogits
 
     def train_step(state, images, labels):
-        if random_crop or random_flip:
-            # the draws of the global batch, this rank's rows of them
-            b, h, w = images.shape[:3]
-            draws = augment_draws(state.generator, b * n_data, h, w,
-                                  random_crop=random_crop,
-                                  random_flip=random_flip,
-                                  crop_size=image_size)
-            lo = data_index * b
-            images = augment_with(
-                images, *(None if d is None else d[lo:lo + b]
-                          for d in draws), crop_size=image_size)
-        labels = labels.long()
-        model = state.model
-        mask = None
-        if train and hasattr(model.backbone, 'dropout_mask'):
-            # the global batch's mask, this rank's rows of it
-            b = images.shape[0]
-            mask = model.backbone.dropout_mask(b * n_data, state.generator)
-            if mask is not None:
+        with profiling.annotate('train.forward'):
+            if random_crop or random_flip:
+                # the draws of the global batch, this rank's rows of them
+                b, h, w = images.shape[:3]
+                draws = augment_draws(state.generator, b * n_data, h, w,
+                                      random_crop=random_crop,
+                                      random_flip=random_flip,
+                                      crop_size=image_size)
                 lo = data_index * b
-                mask = mask[lo:lo + b].to(images.device, non_blocking=True)
+                images = augment_with(
+                    images, *(None if d is None else d[lo:lo + b]
+                              for d in draws), crop_size=image_size)
+            labels = labels.long()
+            model = state.model
+            mask = None
+            if train and hasattr(model.backbone, 'dropout_mask'):
+                # the global batch's mask, this rank's rows of it
+                b = images.shape[0]
+                mask = model.backbone.dropout_mask(b * n_data,
+                                                   state.generator)
+                if mask is not None:
+                    lo = data_index * b
+                    mask = mask[lo:lo + b].to(images.device,
+                                              non_blocking=True)
 
-        logits, prelogits = forward(model, images, mask)
-        if model.sharded:
-            # the whole rows of logits, so that the loss and the argmax
-            # are log_softmax's and argmax's own arithmetic on them
-            group = model.model_group
-            logits = gather_columns(logits, group)
-            reg = irv1.l2_regularization(model.backbone) + reduce_from_model(
-                irv1.WEIGHT_DECAY * model.logits.weight.float().square()
-                .sum(), group)
-        else:
-            reg = irv1.l2_regularization(model)
-        ce = losses_mod.softmax_cross_entropy_with_logits(logits, labels)
-        total = softmax_factor * ce + reg
-        metrics = {'cross_entropy': ce, 'regularization': reg}
+            logits, prelogits = forward(model, images, mask)
+            if model.sharded:
+                # the whole rows of logits, so that the loss and the argmax
+                # are log_softmax's and argmax's own arithmetic on them
+                group = model.model_group
+                logits = gather_columns(logits, group)
+                reg = irv1.l2_regularization(model.backbone) + \
+                    reduce_from_model(irv1.WEIGHT_DECAY
+                                      * model.logits.weight.float().square()
+                                      .sum(), group)
+            else:
+                reg = irv1.l2_regularization(model)
+            ce = losses_mod.softmax_cross_entropy_with_logits(logits, labels)
+            total = softmax_factor * ce + reg
+            metrics = {'cross_entropy': ce, 'regularization': reg}
 
-        new_centers = state.centers
-        if state.centers is not None and center_factor > 0:
-            c_loss, new_centers = losses_mod.center_loss(
-                prelogits, labels, state.centers, center_alfa,
-                group=data_group)
-            total = total + center_factor * c_loss
-            metrics['center_loss'] = c_loss
+            new_centers = state.centers
+            if state.centers is not None and center_factor > 0:
+                c_loss, new_centers = losses_mod.center_loss(
+                    prelogits, labels, state.centers, center_alfa,
+                    group=data_group)
+                total = total + center_factor * c_loss
+                metrics['center_loss'] = c_loss
 
-        if triplet_factor > 0:
-            emb = prelogits.float()
-            emb = emb / torch.sqrt(torch.maximum(
-                emb.square().sum(dim=1, keepdim=True),
-                torch.full((), 1e-10, device=emb.device)))
-            t_loss = losses_mod.triplet_semihard_loss(
-                gather_rows(emb, data_group),
-                gather_values(labels, data_group), triplet_margin)
-            total = total + triplet_factor * t_loss
-            metrics['triplet_loss'] = t_loss
+            if triplet_factor > 0:
+                emb = prelogits.float()
+                emb = emb / torch.sqrt(torch.maximum(
+                    emb.square().sum(dim=1, keepdim=True),
+                    torch.full((), 1e-10, device=emb.device)))
+                t_loss = losses_mod.triplet_semihard_loss(
+                    gather_rows(emb, data_group),
+                    gather_values(labels, data_group), triplet_margin)
+                total = total + triplet_factor * t_loss
+                metrics['triplet_loss'] = t_loss
 
-        metrics['accuracy'] = (logits.argmax(dim=1)
-                               == labels).float().mean()
-        metrics['loss'] = total
+            metrics['accuracy'] = (logits.argmax(dim=1)
+                                   == labels).float().mean()
+            metrics['loss'] = total
 
-        lr = schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group['lr'] = lr
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        average_gradients(model.parameters(), data_group)
-        state.optimizer.step()
+        with profiling.annotate('train.backward'):
+            state.optimizer.zero_grad(set_to_none=True)
+            total.backward()
+            average_gradients(model.parameters(), data_group)
+        with profiling.annotate('train.adam'):
+            lr = schedule(state.step)
+            for group in state.optimizer.param_groups:
+                group['lr'] = lr
+            state.optimizer.step()
 
         state.centers = new_centers
         state.step += 1
@@ -545,12 +556,13 @@ class SoftmaxTrainer:
 
     def placed(self, images, labels):
         """A host batch as tensors on the trainer's device (pinned and
-        asynchronous to a GPU)."""
-        images, labels = torch.as_tensor(images), torch.as_tensor(labels)
-        if self.device.type == 'cuda' and not images.is_cuda:
-            images, labels = images.pin_memory(), labels.pin_memory()
-        return (images.to(self.device, non_blocking=True),
-                labels.to(self.device, non_blocking=True))
+        asynchronous to a GPU): the ``train.place`` span."""
+        with profiling.annotate('train.place'):
+            images, labels = torch.as_tensor(images), torch.as_tensor(labels)
+            if self.device.type == 'cuda' and not images.is_cuda:
+                images, labels = images.pin_memory(), labels.pin_memory()
+            return (images.to(self.device, non_blocking=True),
+                    labels.to(self.device, non_blocking=True))
 
     def placed_rows(self, images, labels):
         """This data rank's contiguous rows of a global host batch every

@@ -28,6 +28,7 @@ from facenet_tpu_torch.apps.embeddings import main
 from facenet_tpu_torch.config import Config
 from facenet_tpu_torch.models.inception_resnet_v1 import init_variables
 from facenet_tpu_torch.utils.tfrecord import TFRecord
+from span_recording import spans  # noqa: F401
 
 TINY = {'block35': {'repeat': 1}, 'block17': {'repeat': 1},
         'block8_1': {'repeat': 1}, 'output': {'size': 32}}
@@ -289,3 +290,25 @@ def test_batch_loader_resumes_mid_epoch_as_jax():
     full = dataset.BatchLoader(files, labels, loader, 4, shuffle=True,
                                repeat=True, seed=9)
     _assert_same(got, _take(full, 15)[8:])
+
+
+def test_evaluate_embeddings_spans(bundles, spans):
+    """With host recording on, `evaluate_embeddings` fetches each batch in
+    one ``embeddings.fetch`` span, ends in one ``embeddings.finish``, and
+    returns what it returns with recording off."""
+    from facenet_tpu_torch import FaceNet
+
+    net = FaceNet(Config({'path': str(bundles[0])}), device='cpu')
+    rng = np.random.RandomState(5)
+    batches = [(rng.randint(0, 256, (3, 160, 160, 3)).astype(np.uint8),
+                np.arange(3 * i, 3 * i + 3)) for i in range(3)]
+    spans.record_spans(False)
+    want = facenet.evaluate_embeddings(net.dispatch, batches)
+    spans.record_spans(True)
+    got = facenet.evaluate_embeddings(net.dispatch, batches)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    summary = spans.span_summary()
+    assert {name: summary[name]['count'] for name in summary} == {
+        'facenet.h2d': 3, 'facenet.forward': 3, 'embeddings.fetch': 3,
+        'embeddings.finish': 1}

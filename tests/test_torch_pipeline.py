@@ -20,6 +20,7 @@ from PIL import Image
 
 from facenet_tpu.config import Config
 from facenet_tpu.utils.synthetic import render_scene
+from span_recording import spans  # noqa: F401
 
 TINY_MODEL = Config({'block35': {'repeat': 1}, 'block17': {'repeat': 1},
                      'block8_1': {'repeat': 1}, 'output': {'size': 32}})
@@ -163,3 +164,31 @@ def test_process_files_matches_jax(bundle_path, scenes, jax_crop_pipeline,
     assert valid[:2, 0].all() and not valid[2].any()
     assert _cos(got[0][valid], want[0][valid]).min() >= 0.999
     assert np.abs(got[1][valid] - want[1][valid]).max() < 1.5
+
+
+def test_pipeline_spans_once_a_batch(bundle_path, scenes, spans):
+    """With host recording on, each batch opens every span of the pipeline
+    once, the embedder's nested in ``pipeline.embed``; the outputs are those
+    of recording off."""
+    from facenet_tpu_torch.pipeline import FacePipeline
+
+    pipe = FacePipeline(bundle_path, image_shape=SHAPE, align='landmarks',
+                        num_faces=2, device='cpu')
+    batches = [scenes, scenes[::-1].copy(), scenes[:1]]
+    spans.record_spans(False)
+    off = [pipe.process_batch(b) for b in batches]
+    spans.record_spans(True)
+    on = [pipe.process_batch(b) for b in batches]
+    for a, b in zip(on, off):
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key])
+    got = spans.span_summary()
+    names = ('pipeline.h2d', 'mtcnn.pnet', 'mtcnn.rnet', 'mtcnn.onet',
+             'pipeline.align', 'pipeline.embed', 'facenet.h2d',
+             'facenet.forward')
+    assert {name: got[name]['count'] for name in names} == \
+        dict.fromkeys(names, len(batches))
+    embed = got['pipeline.embed']
+    assert embed['self_s'] == pytest.approx(
+        embed['total_s'] - got['facenet.h2d']['total_s']
+        - got['facenet.forward']['total_s'], abs=1e-9)

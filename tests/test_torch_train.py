@@ -68,6 +68,7 @@ from facenet_tpu_torch.train.softmax import (SoftmaxClassifier,
                                              create_backbone,
                                              step_on_devices)
 from facenet_tpu_torch.utils.synthetic import write_identity_dataset
+from span_recording import spans  # noqa: F401
 
 TINY = {'block35': {'repeat': 1}, 'block17': {'repeat': 1},
         'block8_1': {'repeat': 1}, 'output': {'size': 32}}
@@ -625,3 +626,30 @@ def test_train_softmax_app_through_both_clis(identity_tree, tmp_path):
     run = _check_run(tmp_path / 'port_run')
     assert jax_export.load_model(run).meta['model_class'] == \
         'InceptionResnetV1'
+
+
+def test_train_epoch_spans_once_a_step(variables, spans):
+    """With host recording on, every step places its batch and opens the
+    step's spans once; the state is the one recording off reaches."""
+    runs = []
+    for on in (False, True):
+        spans.record_spans(on)
+        trainer, state = _port_trainer(variables, LOSSES['softmax'],
+                                       epoch={'size': 2})
+        state, m = trainer.train_epoch(state, _batches(2, size=2), 0,
+                                       log_every=0)
+        runs.append((m, state.model.to_flax_variables(), trainer.timer))
+    (m_off, off, _), (m_on, on, timer) = runs
+    assert m_on['loss'] == m_off['loss']
+    _assert_trees_close(on, off, atol=0)
+    got = spans.span_summary()
+    names = ('train.place', 'train.step', 'train.forward', 'train.backward',
+             'train.adam')
+    assert {name: got[name]['count'] for name in names} == \
+        dict.fromkeys(names, 2)
+    step = got['train.step']
+    assert step['total_s'] == pytest.approx(timer.total_s, abs=1e-9)
+    parts = sum(got[name]['total_s']
+                for name in ('train.forward', 'train.backward', 'train.adam'))
+    assert step['self_s'] == pytest.approx(step['total_s'] - parts,
+                                           abs=1e-9)
