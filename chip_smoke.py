@@ -7,7 +7,8 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
 
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels csrc/pair_below_counts.cu, dense_warp.cu,
-     pnet_pyramid.cu, pnet_level.cu and stem_fused.cu, and the copy
+     pnet_pyramid.cu, pnet_level.cu, stem_fused.cu and crop_resize.cu, and
+     the copy
      yardstick csrc/copy_roof.cu, for sm_90a (one nvcc each, all started
      together);
   3. kernel vs its plain PyTorch version at N=4096/D=512 (metrics 0 and 1),
@@ -51,7 +52,9 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      init_variables(seed=0), bundled MTCNN weights, 480x640, landmark
      alignment, 2 faces per scene) on 64 synthetic scenes in batches of 16,
      with every kernel's launch count reset just before and read just
-     after (4 B3, 4 B2, 0 B1 expected); finite unit-norm embeddings; then
+     after (4 B3, 4 B2, 12 crop, 0 B1 expected: the crop kernel runs for
+     R-Net, O-Net and the alignment's intermediates); finite unit-norm
+     embeddings; then
      4 of the scenes through the same stages on the CPU, the warp by its
      plain version (cascade -> align_by_landmarks(method='dense') ->
      FaceNet): identical valid masks, boxes and landmarks within 1.5 px,
@@ -101,7 +104,8 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      4 batches of 128 (exactly 4 B5 launches; finite unit-norm embeddings;
      min cosine >= 0.999 against stem='cudnn'); (b) the cascade with
      pnet_impl='flat' through FaceDetector at 480x640 on phase 10's 64
-     scenes in batches of 16 (exactly 40 B4 launches, no B3; the same valid
+     scenes in batches of 16 (exactly 40 B4 and 8 crop launches, no B3;
+     the same valid
      masks as the 'pyramid' cascade, boxes and landmarks within 1.5 px,
      scores within 0.02); (c) the B6 tool and (d) the B7 tool, each
      through its main();
@@ -128,8 +132,9 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
  19. the embeddings app's pipeline mode: phase 10's 64 scenes in batches
      of 16 through FacePipeline (1 face a scene) under align='crop' and
      'landmarks', then the app's kept_rows; launch counts reset just before
-     each run and read just after: exactly 4 B3 and no B2 under 'crop', 4
-     B3 and 4 B2 under 'landmarks'; both modes keep the same scenes, whose
+     each run and read just after: exactly 4 B3, no B2 and 12 crop under
+     'crop', 4 B3, 4 B2 and 12 crop under 'landmarks'; both modes keep the
+     same scenes, whose
      embeddings are finite and unit-norm; scenes/s of each;
  20. validate-on-LFW at protocol scale: LFW-shaped counts (5,749
      identities, 13,233 images) as empty placeholder files in a temporary
@@ -227,10 +232,12 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      in order, at cosine >= 0.99999 to one rank's;
  35. the Faster-RCNN through FaceDetector(detector='frcnnv3') with the
      bundled weights at 480x640 on 64 synthetic scenes in batches of 16
-     (proposals 256, outputs 32), every launch count 0; 4 scenes on the
+     (proposals 256, outputs 32), 4 crop launches (RoIAlign) and no other;
+     4 scenes on the
      card and on the CPU matched by IoU: boxes within 1.5 px, scores
      within 0.02; ms a batch as issued, device busy, crop_and_resize's
-     share of it, a profiler top 10;
+     ms (CUDA events: the profiler's key averages leave out a kernel
+     launched through ctypes), a profiler top 10;
  36. the bundled Faster-RCNN's quality gate on the card (32 held-out
      256x256 scenes, seed 555): recall >= 0.97, precision >= 0.86, mean
      IoU >= 0.5;
@@ -247,8 +254,9 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      ConfusionMatrix on the card and on the CPU within 1e-6;
  40. the trained trees of 37 and 38 through FaceDetector(params=...) on
      the card, one batch each: finite outputs.
-     No hand-written kernel lies on the paths of 35-40: every launch count
-     stays 0 there.
+     The crop kernel is the only hand-written kernel on the paths of
+     35-40: the Faster-RCNN's RoIAlign (4 launches in 35, one a step in 37)
+     and the cascade's crops (3 launches in 40).
  41. import -> export -> compiled serving of full-width IRv1 (default
      config, 512-d, init_variables(seed=0) with BatchNorm statistics and
      biases moved off their init): the reference's folded units
@@ -313,15 +321,28 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      540x720 scenes upscaled to 1080x1440 JPEGs (decoded at libjpeg's DCT
      scale 1/2) through FaceDetector(image_shapes=[480x640, 540x720])
      .detect_files in batches of 16 (two deep): exactly 4 B3 launches (two
-     batches a bucket); the faces, boxes (2 px after rounding) and scores
-     (0.02) of the cascade run one batch at a time on the same decoded
-     canvases, IoU-matched; the canvases equal those of PIL's decode
+     batches a bucket) and 8 crop; the faces, boxes (2 px after rounding)
+     and scores (0.02) of the cascade run one batch at a time on the same
+     decoded canvases, IoU-matched; the canvases equal those of PIL's decode
      (the library off) at max |d| = 0; scenes/s, the decode ms of a batch
      with the library and without beside the cascade's; then
      FacePipeline.process_files (align='landmarks') on the 480x640 half
-     in batches of 8: exactly 4 B3 and 4 B2 launches, the valid slots and
+     in batches of 8: exactly 4 B3, 4 B2 and 12 crop launches, the valid
+     slots and
      embeddings (cosine >= 0.999) of process_batch on the decoded scenes;
      scenes/s. Each file phase prints which decoder ran.
+ 49. the crop kernel (csrc/crop_resize.cu, which replaces no TPU kernel)
+     against its plain version at the benchmark's pipeline cells' crop
+     shapes on 480x640 scenes of noise: crowd-b8's R-Net (8 x 64 crops of
+     24 px), O-Net (8 x 32 of 48 px) and alignment intermediates (8 x 32
+     of 240 px), single-b64's R-Net (64 x 64), O-Net (64 x 32) and box
+     crops (64 x 1 of 160 px), boxes of 12-300 px that cross the edges:
+     max |d| <= 1e-3; each timed in device time beside its bound (the
+     crops written and the distinct source pixels the taps read, at 3.35
+     TB/s), the plain version (CUDA events) and F.grid_sample at the same
+     positions (the library's sampler, channels first), and a batch's sum
+     for each cell; then one FacePipeline batch in each align mode:
+     exactly 3 crop launches (R-Net, O-Net, the alignment or box crop).
 
 The GPU machine may lack yaml, h5py, sklearn and click, so nothing here
 imports them at module level: the model bundle is built in memory, and
@@ -483,10 +504,11 @@ def print_ptxas(lib):
 
 def _launch_counters():
     from facenet_tpu_torch.detectors.mtcnn import pnet
-    from facenet_tpu_torch.ops import pair_counts, stem, warp
+    from facenet_tpu_torch.ops import crop, pair_counts, stem, warp
     from facenet_tpu_torch.tools import try_pnet_v3
     return {'pair_below_counts': pair_counts.pair_histogram,
             'dense_warp': warp.dense_warp,
+            'crop_resize': crop.crop_and_resize,
             'pnet_pyramid': pnet.pnet_forward_pyramid,
             'stem_fused': stem.stem_forward,
             'pnet_flat': pnet.pnet_forward_flat,
@@ -763,8 +785,9 @@ def detection_phases(rng, libs, bundle):
     path_s = time.monotonic() - t0
     counts = read_launches()
     print(f'  {path_s:.2f} s, kernel launches {counts}')
-    require(counts == only(dense_warp=4, pnet_pyramid=4),
-            f'expected 4 pnet_pyramid and 4 dense_warp launches, got {counts}')
+    require(counts == only(dense_warp=4, pnet_pyramid=4, crop_resize=12),
+            f'expected 4 pnet_pyramid, 4 dense_warp and 12 crop_resize '
+            f'launches, got {counts}')
     valid = np.concatenate([o['valid'] for o in outs])
     emb = np.concatenate([o['embeddings'] for o in outs])
     boxes = np.concatenate([o['boxes'] for o in outs])
@@ -1223,8 +1246,10 @@ def slice3_phases(rng, libs, context):
     path_s = time.monotonic() - t0
     counts_b = read_launches()
     print(f'  {path_s:.2f} s, kernel launches {counts_b}')
-    require(len(levels) == 10 and counts_b == only(pnet_flat=40),
-            f'expected 40 pnet_flat launches alone, got {counts_b}')
+    require(len(levels) == 10
+            and counts_b == only(pnet_flat=40, crop_resize=8),
+            f'expected 40 pnet_flat and 8 crop_resize launches, got '
+            f'{counts_b}')
     refs = [det.detect_batch(images[i:i + 16]) for i in range(0, 64, 16)]
     got = {k: np.concatenate([o[k] for o in outs])
            for k in ('valid', 'boxes', 'landmarks', 'scores')}
@@ -1539,9 +1564,10 @@ def slice7_phases(rng, context):
                 for i in range(0, 64, 16)]
         wall = time.perf_counter() - t0
         counts = read_launches()
-        require(counts == only(pnet_pyramid=4, dense_warp=warps),
-                f'{align}: expected 4 pnet_pyramid and {warps} dense_warp '
-                f'launches, got {counts}')
+        require(counts == only(pnet_pyramid=4, dense_warp=warps,
+                               crop_resize=12),
+                f'{align}: expected 4 pnet_pyramid, {warps} dense_warp and '
+                f'12 crop_resize launches, got {counts}')
         rows, row_labels, row_files, dropped = kept_rows(
             np.concatenate([o['embeddings'] for o in outs]),
             np.concatenate([o['valid'] for o in outs]), labels, names)
@@ -2610,8 +2636,8 @@ def crop_batches(images, boxes, landmarks, net, batch, n, seed):
 def slice11_phases(rng, context):
     """Phases 35-40 (see the module docstring): Faster-RCNN serving, its
     quality gate and training, MTCNN training, the pair classifiers, and
-    the trained trees served; no hand-written kernel runs on these paths,
-    so every launch count stays 0."""
+    the trained trees served; the crop kernel is the only hand-written
+    kernel on these paths."""
     import torch
 
     from facenet_tpu_torch.config import Config
@@ -2619,9 +2645,9 @@ def slice11_phases(rng, context):
     from facenet_tpu_torch.detectors import evaluation, pretrained
     from facenet_tpu_torch.detectors.face_detector import FaceDetector
     from facenet_tpu_torch.detectors.frcnn import detector as frcnn
-    from facenet_tpu_torch.ops.image_ops import crop_and_resize
+    from facenet_tpu_torch.ops.crop import crop_and_resize
     from facenet_tpu_torch.train import classifier, mtcnn
-    from facenet_tpu_torch.utils.timing import cuda_ms, device_busy
+    from facenet_tpu_torch.utils.timing import cuda_ms, device_ms
     from facenet_tpu_torch.utils.timing import spread as _spread
 
     smi = context['smi']
@@ -2644,7 +2670,8 @@ def slice11_phases(rng, context):
         found += fd.detect_images(list(images[i:i + 16]))
     path_s = time.monotonic() - t0
     counts = read_launches()
-    require(counts == only(), f'the FRCNN path launched kernels: {counts}')
+    require(counts == only(crop_resize=4),
+            f'expected 4 crop_resize launches (RoIAlign) alone, got {counts}')
     n_found = sum(len(f) for f in found)
     matched = sum(evaluation.match_detections(
         gt, np.array([[b.left, b.top, b.left + b.width, b.top + b.height]
@@ -2670,13 +2697,16 @@ def slice11_phases(rng, context):
     busy, wall, launches = busy_line(lambda: det.detect_batch_async(batch), 3)
     with torch.inference_mode():
         fmap, boxes, _, _ = det._propose(batch)
-    crop_busy, _, _ = device_busy(
-        lambda: crop_and_resize(fmap, boxes / frcnn.STRIDE, det.roi_size), 3)
+    # the crop kernel, launched through ctypes, has no ATen op over it, so
+    # the profiler's key averages (busy_line) leave it out: CUDA events
+    crop_ms = device_ms(
+        lambda: crop_and_resize(fmap, boxes / frcnn.STRIDE, det.roi_size),
+        reps=20)[0]
     print(f'  on {smi}: {ms:.3f} ms a batch of 16 as issued (windows '
           f'{_spread(windows)}) = {16e3 / ms:.1f} scenes/s; device busy '
           f'{busy:.3f} ms a batch ({busy / wall:.3f} of {wall:.3f} ms wall, '
-          f'{launches:.0f} launches); crop_and_resize {crop_busy:.3f} ms '
-          f'busy = {crop_busy / busy:.3f} of it')
+          f'{launches:.0f} launches) besides crop_and_resize, '
+          f'{crop_ms:.3f} ms')
     device_breakdown(lambda: det.detect_batch_async(batch), 10)
 
     # 36. the bundled FRCNN's quality gate on the card
@@ -2716,7 +2746,9 @@ def slice11_phases(rng, context):
     history = [{k: float(v) for k, v in h.items()} for h in history]
     run_s = time.monotonic() - t0
     counts = read_launches()
-    require(counts == only(), f'FRCNN training launched kernels: {counts}')
+    require(counts == only(crop_resize=20),
+            f'expected 20 crop_resize launches (a step\'s RoIAlign) alone, '
+            f'got {counts}')
     rpn = [h['rpn_cls'] for h in history]
     require(all(np.isfinite(list(h.values())).all() for h in history)
             and np.mean(rpn[-5:]) < np.mean(rpn[:5]),
@@ -2839,7 +2871,8 @@ def slice11_phases(rng, context):
     # 40. the trained trees served
     print('[40] the trained trees of phases 37 and 38 through '
           'FaceDetector(params=...) on the card (the MTCNN with its '
-          '"flax" P-Net, so no kernel runs), one batch of 16 each')
+          '"flax" P-Net, so the crops are the only kernel), one batch of 16 '
+          'each')
     reset_launches()
     for name, params, kwargs in (('frcnnv3', frcnn_params, {}),
                                  ('mtcnn', mtcnn_params,
@@ -2852,7 +2885,8 @@ def slice11_phases(rng, context):
         print(f'  {name}: {int(out["valid"].sum())} valid boxes in 16 scenes, '
               'finite')
     counts = read_launches()
-    require(counts == only(), f'phase 40 launched kernels: {counts}')
+    require(counts == only(crop_resize=3),
+            f'phase 40: expected 3 crop_resize launches alone, got {counts}')
     print(f'phases 35-40: {time.monotonic() - started:.1f} s')
 
 
@@ -3502,9 +3536,9 @@ def slice13_phases(rng, context):
         files_s = time.perf_counter() - t0
         counts = read_launches()
         decoder = decoder_line(native)
-        require(counts == only(pnet_pyramid=4),
-                f'expected 4 pnet_pyramid launches (2 batches a bucket), '
-                f'got {counts}')
+        require(counts == only(pnet_pyramid=4, crop_resize=8),
+                f'expected 4 pnet_pyramid (2 batches a bucket) and 8 '
+                f'crop_resize launches, got {counts}')
         # the cascade one batch at a time on the same decoded canvases
         worst_box = worst_score = 0.0
         decode_ms, pil_ms, cascade_ms, n_found = [], [], [], 0
@@ -3582,13 +3616,163 @@ def slice13_phases(rng, context):
               f'faces, min cosine {agree.min():.6f} to process_batch on the '
               f'first 8 scenes; kernel launches {counts}; {pipe_s:.3f} s = '
               f'{32 / pipe_s:.1f} scenes/s on {smi}')
-        require(counts == only(pnet_pyramid=4, dense_warp=4),
-                f'expected 4 pnet_pyramid and 4 dense_warp launches, got '
-                f'{counts}')
+        require(counts == only(pnet_pyramid=4, dense_warp=4,
+                               crop_resize=12),
+                f'expected 4 pnet_pyramid, 4 dense_warp and 12 crop_resize '
+                f'launches, got {counts}')
         require(np.array_equal(valid[:8], want['valid'])
                 and np.abs(norms - 1).max() < 1e-3 and agree.min() >= 0.999,
                 'process_files differs from process_batch on the arrays')
     print(f'  phases 45-48 in {time.monotonic() - started:.1f} s on {smi}')
+
+
+# a batch's crops in the benchmark's pipeline cells: (part, scenes, boxes a
+# scene, side, box px)
+CROP_CELLS = (
+    ('crowd-b8', (('R-Net', 8, 64, 24, (12, 300)),
+                  ('O-Net', 8, 32, 48, (12, 300)),
+                  ('alignment', 8, 32, 240, (40, 180)))),
+    ('single-b64', (('R-Net', 64, 64, 24, (12, 300)),
+                    ('O-Net', 64, 32, 48, (12, 300)),
+                    ('box crop', 64, 1, 160, (56, 200)))))
+
+
+def crop_boxes(rng, b, k, px, shape):
+    """[b, k, 4] float32 (x1, y1, x2, y2) boxes of px[0]-px[1] pixels on
+    the card, centred anywhere in the scene (so some cross its edge)."""
+    import torch
+    side = rng.uniform(*px, (b, k, 1)) * rng.uniform(0.8, 1.25, (b, k, 2))
+    centre = rng.uniform(0, 1, (b, k, 2)) * np.array(shape[::-1])
+    boxes = np.concatenate([centre - side / 2, centre + side / 2], -1)
+    return torch.from_numpy(boxes.astype(np.float32)).cuda()
+
+
+def crop_positions(boxes, size, shape):
+    """The crops' sample positions (ys, xs), each [B, K, size], in source
+    pixels (centres at whole numbers), as the crop computes them."""
+    import torch
+    grid = (torch.arange(size, dtype=torch.float32, device=boxes.device)
+            + 0.5) / size
+
+    def along(lo, hi):
+        return lo[..., None] + grid * (hi - lo)[..., None] - 0.5
+
+    return (along(boxes[..., 1], boxes[..., 3]),
+            along(boxes[..., 0], boxes[..., 2]))
+
+
+def crop_touched(boxes, size, shape):
+    """Distinct source pixels the crops' taps read: for each scene, the
+    union over its boxes of tap rows x tap columns."""
+    import torch
+    ys, xs = crop_positions(boxes, size, shape)
+
+    def taps(pos, n):
+        f = torch.floor(pos)
+        return torch.cat([f.clamp(0, n - 1), (f + 1).clamp(0, n - 1)],
+                         -1).long()
+
+    touched = 0
+    for y, x in zip(taps(ys, shape[0]), taps(xs, shape[1])):
+        mask = torch.zeros(shape, dtype=torch.bool, device=boxes.device)
+        mask[y[:, :, None], x[:, None, :]] = True
+        touched += int(mask.sum())
+    return touched
+
+
+def crop_phase(rng, context):
+    """Phase 49 (see the module docstring); returns the kernels-line entry
+    of the crop kernel, its times those of a crowd-b8 batch."""
+    import torch
+    import torch.nn.functional as F
+
+    from facenet_tpu_torch.ops import crop
+    from facenet_tpu_torch.pipeline import FacePipeline
+    from facenet_tpu_torch.utils.timing import cuda_ms, device_ms
+
+    smi = context['smi']
+    print('[49] the crop kernel vs plain at the pipeline cells\' crop shapes '
+          f'(480x640 scenes of noise), then times on {smi}: the kernel and '
+          'F.grid_sample in device time, the plain version by CUDA events')
+    torch.cuda.empty_cache()        # the plain version's broadcasts
+    errs, batch_ms = [], {}
+    for cell, parts in CROP_CELLS:
+        total = dict.fromkeys(('kernel', 'plain', 'library', 'bound'), 0.0)
+        scenes = torch.from_numpy(rng.integers(
+            0, 256, (parts[0][1], *SCENE, 3), dtype=np.uint8)).cuda().float()
+        nchw = scenes.permute(0, 3, 1, 2).contiguous()
+        for part, b, k, size, px in parts:
+            boxes = crop_boxes(rng, b, k, px, SCENE)
+            got = crop.crop_and_resize(scenes, boxes, size)
+            torch.cuda.synchronize()
+            want = crop.crop_and_resize_plain(scenes, boxes, size)
+            err = float((got - want).abs().max())
+            del got, want
+            errs.append(err)
+            require(err <= 1e-3,
+                    f'crop kernel != plain ({cell}, {part}): {err}')
+            kern_ms = device_ms(
+                lambda: crop.crop_and_resize(scenes, boxes, size), reps=20)[0]
+            plain_ms = cuda_ms(
+                lambda: crop.crop_and_resize_plain(scenes, boxes, size),
+                reps=2)[0]
+            # the library's bilinear sampler at the same positions,
+            # channels first, clamped to the border
+            ys, xs = crop_positions(boxes, size, SCENE)
+            xn = ((2 * xs + 1) / SCENE[1] - 1)[:, :, None, :]
+            yn = ((2 * ys + 1) / SCENE[0] - 1)[:, :, :, None]
+            grid = torch.stack(torch.broadcast_tensors(xn, yn), -1).reshape(
+                b, k * size, size, 2)
+            lib_ms = device_ms(lambda: F.grid_sample(
+                nchw, grid, mode='bilinear', padding_mode='border',
+                align_corners=False), reps=20)[0]
+            nbytes = 4 * (b * k * size * size * 3 + boxes.numel()
+                          + 3 * crop_touched(boxes, size, SCENE))
+            bound_ms = nbytes / H100_HBM_BYTES * 1e3
+            print(f'  {cell} {part}: {b} x {k} crops of {size} px, max '
+                  f'|kernel - plain| {err:.3e}; kernel {kern_ms:.4f} ms, '
+                  f'bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB: crops '
+                  f'written, '
+                  f'taps\' pixels read), plain {plain_ms:.3f} ms, '
+                  f'F.grid_sample {lib_ms:.4f} ms')
+            for key, ms in (('kernel', kern_ms), ('plain', plain_ms),
+                            ('library', lib_ms), ('bound', bound_ms)):
+                total[key] += ms
+        print(f'  {cell}, a batch\'s three crops: kernel {total["kernel"]:.4f}'
+              f' ms = {total["kernel"] / total["bound"]:.2f} x its bound '
+              f'{total["bound"]:.4f}; plain {total["plain"]:.3f} ms; '
+              f'F.grid_sample {total["library"]:.4f} ms')
+        batch_ms[cell] = total
+        del scenes, nchw
+        torch.cuda.empty_cache()
+
+    counts = {}
+    for align, warps in (('crop', 0), ('landmarks', 1)):
+        pipe = FacePipeline(context['facenet'], image_shape=SCENE,
+                            align=align)
+        pipe.process_batch(context['images'][:16])           # warm
+        reset_launches()
+        pipe.process_batch(context['images'][16:32])
+        counts[align] = read_launches()
+        require(counts[align] == only(pnet_pyramid=1, dense_warp=warps,
+                                      crop_resize=3),
+                f'{align}: expected 1 pnet_pyramid, {warps} dense_warp and 3 '
+                f'crop_resize launches a batch, got {counts[align]}')
+    print(f'  one FacePipeline batch of 16: launches {counts}')
+    crowd = batch_ms['crowd-b8']
+    return {
+        'name': 'crop_resize',
+        'route': 'cuda',
+        'source': 'facenet_tpu_torch/csrc/crop_resize.cu',
+        'replaces': None,
+        'launches': counts['landmarks']['crop_resize'],
+        'max_abs_err': max(errs),
+        'ms': crowd['kernel'],
+        'plain_ms': crowd['plain'],
+        'bound_ms': crowd['bound'],
+        'bound_by': 'bytes',
+        'library_ms': crowd['library'],
+    }
 
 
 def main():
@@ -3604,7 +3788,7 @@ def main():
     from facenet_tpu_torch.models.inception_resnet_v1 import (
         InceptionResnetV1, init_variables)
     from facenet_tpu_torch.detectors.mtcnn import pnet
-    from facenet_tpu_torch.ops import cuda_build, pair_counts, stem, warp
+    from facenet_tpu_torch.ops import crop, cuda_build, pair_counts, stem, warp
     from facenet_tpu_torch.tools import probe_native
     from facenet_tpu_torch.utils.timing import card_line, cuda_ms
     from facenet_tpu_torch.utils.timing import spread as _spread
@@ -3623,7 +3807,8 @@ def main():
     # 2. build every kernel, one nvcc each, all started together
     t0 = time.monotonic()
     kernels = (pair_counts.KERNEL, warp.KERNEL, pnet.KERNEL,
-               pnet.LEVEL_KERNEL, stem.KERNEL, copy_roof_kernel())
+               pnet.LEVEL_KERNEL, stem.KERNEL, crop.KERNEL,
+               copy_roof_kernel())
     libs = dict(zip((k.name for k in kernels), cuda_build.build_all(kernels)))
     print(f'[2] built {", ".join(k.library_path().name for k in kernels)} '
           f'in {time.monotonic() - t0:.1f} s')
@@ -3820,9 +4005,11 @@ def main():
     slice11_phases(rng, context)
     slice12_phases(rng, context)
     slice13_phases(rng, context)
+    crop_entry = crop_phase(rng, context)
 
     print(f'total {time.monotonic() - started:.1f} s')
-    print(json.dumps({'kernels': [pair_entry] + detection + slice3}))
+    print(json.dumps({'kernels': [pair_entry] + detection + slice3
+                      + [crop_entry]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

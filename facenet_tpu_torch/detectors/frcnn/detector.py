@@ -5,7 +5,8 @@ torch: backbone, RPN, proposal top-k and NMS, RoIAlign on the stride-16
 map, the box head, final top-k and NMS, over a batch of images with fixed
 shapes (box buffers with validity masks, never ragged tensors). The convs
 and dense layers are cuDNN and cuBLAS work; RoIAlign is
-`ops.image_ops.crop_and_resize`; no hand-written kernel runs here.
+`ops.crop.crop_and_resize`, the crop kernel on the card (its plain version
+on the CPU), the only hand-written kernel that runs here.
 
     det = FasterRCNN(image_shape=(480, 640))       # device=None: cuda
     out = det.detect_batch(images_uint8)
@@ -28,7 +29,7 @@ from facenet_tpu_torch.detectors.frcnn.network import (
 from facenet_tpu_torch.detectors.mtcnn.networks import (
     flax_tree, lecun_init_, load_flax_tree, no_tf32, worst_leaf_gap)
 from facenet_tpu_torch.device import resolve_device
-from facenet_tpu_torch.ops.image_ops import crop_and_resize
+from facenet_tpu_torch.ops.crop import crop_and_resize
 from facenet_tpu_torch.ops.nms import batched_nms_mask, top_k_boxes
 
 

@@ -31,7 +31,8 @@ from facenet_tpu_torch.detectors.mtcnn import pnet as pnet_kernel
 from facenet_tpu_torch.detectors.mtcnn.networks import (ONet, PNet, RNet,
                                                         normalize_crops)
 from facenet_tpu_torch.device import resolve_device
-from facenet_tpu_torch.ops.image_ops import align_by_landmarks, crop_and_resize
+from facenet_tpu_torch.ops.crop import crop_and_resize
+from facenet_tpu_torch.ops.image_ops import align_by_landmarks
 from facenet_tpu_torch.ops.nms import (apply_bbox_regression, batched_nms_mask,
                                        square_boxes, top_k_boxes)
 from facenet_tpu_torch.utils import profiling

@@ -1,8 +1,10 @@
 """Batched image sampling: crop-and-resize and affine (similarity) warps.
 
 Batched, fixed-shape and bilinear, with clamp-to-edge sampling. The
-axis-aligned crop is separable, so it runs as two float32 matrix products
-(TF32 off); the landmark alignment composes that crop with a dense affine
+axis-aligned crop is separable; `crop_and_resize` here writes it as two
+float32 matrix products (TF32 off), the plain version of the crop kernel
+`facenet_tpu_torch.ops.crop.crop_and_resize`, which every caller goes
+through. The landmark alignment composes that crop with a dense affine
 warp whose CUDA kernel is `facenet_tpu_torch.ops.warp.dense_warp`.
 """
 
@@ -262,7 +264,8 @@ def dense_warp_inputs(images, landmarks, out_size):
     a = inv[..., :2] * sc[..., None]
     off = (inv[..., 2] + 0.5 - lo) * sc - 0.5
     mats = torch.cat([a, off[..., None]], dim=-1).reshape(b * k, 2, 3)
-    inter = crop_and_resize(images, boxes, t)
+    from facenet_tpu_torch.ops import crop
+    inter = crop.crop_and_resize(images, boxes, t)
     return inter.reshape(b * k, t, t, images.shape[-1]), mats.contiguous()
 
 

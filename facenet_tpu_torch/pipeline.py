@@ -77,8 +77,8 @@ class FacePipeline:
 
     @torch.inference_mode()
     def _step(self, images):
-        from facenet_tpu_torch.ops.image_ops import (align_by_landmarks,
-                                                     crop_and_resize)
+        from facenet_tpu_torch.ops.crop import crop_and_resize
+        from facenet_tpu_torch.ops.image_ops import align_by_landmarks
         k, size = self.num_faces, self.size
         b = images.shape[0]
         out = self.backend._detect(images)

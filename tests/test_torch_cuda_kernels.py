@@ -18,7 +18,7 @@ from facenet_tpu_torch.detectors import pretrained
 from facenet_tpu_torch.detectors.mtcnn import networks, pnet
 from facenet_tpu_torch.models import irv1_fast
 from facenet_tpu_torch.models.inception_resnet_v1 import init_variables
-from facenet_tpu_torch.ops import pair_counts, stem, warp
+from facenet_tpu_torch.ops import crop, pair_counts, stem, warp
 from facenet_tpu_torch.ops.preprocessing import image_processing
 from facenet_tpu_torch.tools import try_pallas_pnet, try_pnet_v3
 from facenet_tpu_torch.utils import synthetic
@@ -77,6 +77,49 @@ def test_wrappers_take_the_plain_version_on_cpu(bundled_pnet):
         assert torch.equal(p, pw) and torch.equal(r, rw)
     assert (warp.dense_warp.launches,
             pnet.pnet_forward_pyramid.launches) == before
+
+
+def _crop_boxes(rng, b, k, shape, lo=12, hi=200):
+    """[b, k, 4] float32 square-ish (x1, y1, x2, y2) boxes of lo-hi px,
+    their centres anywhere in an image of `shape`, so some cross an edge."""
+    size = rng.uniform(lo, hi, (b, k, 1)) * rng.uniform(0.8, 1.25, (b, k, 2))
+    centre = rng.uniform(0, 1, (b, k, 2)) * np.array(shape[::-1])
+    return np.concatenate([centre - size / 2, centre + size / 2],
+                          -1).astype(np.float32)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'uint8 strided'])
+def test_crop_wrapper_takes_the_plain_version_on_cpu(dtype):
+    rng = np.random.RandomState(8)
+    imgs = torch.from_numpy(rng.uniform(0, 255, (2, 40, 56, 3))
+                            .astype(np.float32))
+    if dtype != 'float32':
+        imgs = imgs.to(torch.uint8).permute(0, 2, 1, 3)   # a strided view
+    boxes = torch.from_numpy(_crop_boxes(rng, 2, 5, imgs.shape[1:3], 4, 30))
+    before = crop.crop_and_resize.launches
+    got = crop.crop_and_resize(imgs, boxes, 24)
+    assert got.dtype == torch.float32 and got.shape == (2, 5, 24, 24, 3)
+    assert torch.equal(got, crop.crop_and_resize_plain(imgs, boxes, 24))
+    assert crop.crop_and_resize.launches == before
+
+
+@pytest.mark.parametrize('b, k', [(2, 0), (0, 3)])
+def test_crop_wrapper_gives_empty_crops_for_no_boxes(b, k):
+    before = crop.crop_and_resize.launches
+    out = crop.crop_and_resize(torch.zeros(b, 10, 12, 3), torch.zeros(b, k, 4),
+                               5)
+    assert out.shape == (b, k, 5, 5, 3) and out.dtype == torch.float32
+    assert crop.crop_and_resize.launches == before
+
+
+def test_crop_wrapper_raises_on_what_the_kernel_does_not_take():
+    imgs, boxes = torch.zeros(1, 10, 12, 3), torch.zeros(1, 2, 4)
+    with pytest.raises(ValueError, match='unsupported device'):
+        crop.crop_and_resize(imgs.to('meta'), boxes.to('meta'), 5)
+    with pytest.raises(ValueError, match='no backward'):
+        crop.crop_and_resize(imgs.requires_grad_(), boxes, 5)
+    with torch.no_grad():                     # no gradient asked for
+        assert crop.crop_and_resize(imgs, boxes, 5).shape == (1, 2, 5, 5, 3)
 
 
 def _flat_planes(rng, sh, true_sw, b=2, nan=False):
@@ -252,6 +295,73 @@ def test_dense_warp_kernel_shapes(case):
     want = warp.dense_warp_plain(src, mats, size)
     assert got.shape == want.shape
     assert float((got - want).abs().max()) < 1e-3
+
+
+def _crop_case(case):
+    """(images, boxes [B, K, 4], out size) on the card for one case of the
+    crop kernel: the main path's geometries on 480x640 scenes of 0-255
+    noise (the harshest for a coordinate rounded otherwise), a 64-channel
+    feature map through a permuted view, boxes off the image, and
+    non-finite boxes."""
+    rng = np.random.RandomState(9)
+    scenes = torch.from_numpy(rng.uniform(0, 255, (2, 480, 640, 3))
+                              .astype(np.float32)).cuda()
+    geometry = {'rnet 24': (64, 24, 12, 200), 'onet 48': (32, 48, 12, 200),
+                'align 240': (4, 240, 40, 180), 'box 160': (1, 160, 48, 200)}
+    if case in geometry:
+        k, size, lo, hi = geometry[case]
+        boxes = _crop_boxes(rng, 2, k, (480, 640), lo, hi)
+        if case == 'box 160':                 # the scenes as uint8 too
+            scenes = scenes.to(torch.uint8)
+        return scenes, torch.from_numpy(boxes).cuda(), size
+    if case == 'feature map':
+        fmap = torch.from_numpy(rng.normal(0, 1, (2, 64, 30, 40))
+                                .astype(np.float32)).cuda()
+        boxes = _crop_boxes(rng, 2, 16, (30, 40), 1, 12)
+        return fmap.permute(0, 2, 3, 1), torch.from_numpy(boxes).cuda(), 7
+    boxes = _crop_boxes(rng, 2, 8, (480, 640), 20, 100)
+    boxes[0, :4] += np.array([700, 0, 700, 0], np.float32)     # right of it
+    boxes[1, :4] -= np.array([0, 600, 0, 600], np.float32)     # above it
+    boxes[0, 4:] = [[-30, -40, 50, 60], [600, 440, 700, 520],
+                    [-100, 100, 800, 300], [300, -50, 340, 600]]
+    return scenes, torch.from_numpy(boxes).cuda(), 48
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['rnet 24', 'onet 48', 'align 240',
+                                  'box 160', 'feature map', 'off the image'])
+def test_crop_kernel_matches_plain(case):
+    """The crop kernel against its plain version at 1e-3 (0-255 scale)."""
+    _gpu()
+    images, boxes, size = _crop_case(case)
+    before = crop.crop_and_resize.launches
+    got = crop.crop_and_resize(images, boxes, size)
+    torch.cuda.synchronize()
+    assert crop.crop_and_resize.launches == before + 1
+    want = crop.crop_and_resize_plain(images, boxes, size)
+    assert got.shape == want.shape == (*boxes.shape[:2], size, size,
+                                       images.shape[-1])
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_crop_kernel_reads_inside_the_image_for_non_finite_boxes():
+    """NaN and inf boxes (an empty slot's landmarks) read inside the
+    image; the finite boxes' crops are those of the batch without them."""
+    _gpu()
+    images, boxes, size = _crop_case('align 240')
+    bad = boxes.clone()
+    bad[0, 1] = float('nan')
+    bad[1, 0, 2:] = float('inf')
+    bad[1, 2, :2] = -float('inf')
+    got = crop.crop_and_resize(images, bad, size)
+    torch.cuda.synchronize()
+    finite = bad.isfinite().all(-1)
+    assert int(finite.sum()) == 5
+    clean = crop.crop_and_resize(images, boxes, size)
+    assert torch.equal(got[finite], clean[finite])
+    want = crop.crop_and_resize_plain(images, boxes, size)
+    assert float((got[finite] - want[finite]).abs().max()) <= 1e-3
 
 
 @pytest.mark.cuda
