@@ -343,6 +343,18 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      positions (the library's sampler, channels first), and a batch's sum
      for each cell; then one FacePipeline batch in each align mode:
      exactly 3 crop launches (R-Net, O-Net, the alignment or box crop).
+ 50. the greedy NMS kernel (csrc/nms_greedy.cu, which replaces no TPU
+     kernel: JAX's loop compiles into one XLA program) against the loop it
+     replaces (`ops.nms.greedy_keep_plain` on the card) at RetinaFace's
+     shape (8 frames x 5,000 candidates of 16-300 px on 1080x1920, IoU
+     0.4, +1 areas, keep 750) and MTCNN's O-Net shape (16 frames x 32,
+     'min', IoU 0.7): keep masks and kept counts equal; the kernel in
+     device time beside its bound (the float32 operations of the pair
+     tests greedy NMS needs, not of every pair the kernel tests, at 67
+     TFLOP/s, `nms_work`), the loop by CUDA events as the host issues
+     it; then one FacePipeline batch of 8 1080x1920 frames through
+     RetinaFace-R50 (random weights): exactly 1 NMS, 1 crop and 1 B2
+     launch, no P-Net, and its wall time.
 
 The GPU machine may lack yaml, h5py, sklearn and click, so nothing here
 imports them at module level: the model bundle is built in memory, and
@@ -504,11 +516,12 @@ def print_ptxas(lib):
 
 def _launch_counters():
     from facenet_tpu_torch.detectors.mtcnn import pnet
-    from facenet_tpu_torch.ops import crop, pair_counts, stem, warp
+    from facenet_tpu_torch.ops import crop, nms, pair_counts, stem, warp
     from facenet_tpu_torch.tools import try_pnet_v3
     return {'pair_below_counts': pair_counts.pair_histogram,
             'dense_warp': warp.dense_warp,
             'crop_resize': crop.crop_and_resize,
+            'nms_greedy': nms.greedy_keep,
             'pnet_pyramid': pnet.pnet_forward_pyramid,
             'stem_fused': stem.stem_forward,
             'pnet_flat': pnet.pnet_forward_flat,
@@ -785,9 +798,10 @@ def detection_phases(rng, libs, bundle):
     path_s = time.monotonic() - t0
     counts = read_launches()
     print(f'  {path_s:.2f} s, kernel launches {counts}')
-    require(counts == only(dense_warp=4, pnet_pyramid=4, crop_resize=12),
-            f'expected 4 pnet_pyramid, 4 dense_warp and 12 crop_resize '
-            f'launches, got {counts}')
+    require(counts == only(dense_warp=4, pnet_pyramid=4, crop_resize=12,
+                           nms_greedy=4),
+            f'expected 4 pnet_pyramid, 4 dense_warp, 12 crop_resize and 4 '
+            f'nms_greedy launches, got {counts}')
     valid = np.concatenate([o['valid'] for o in outs])
     emb = np.concatenate([o['embeddings'] for o in outs])
     boxes = np.concatenate([o['boxes'] for o in outs])
@@ -1247,9 +1261,9 @@ def slice3_phases(rng, libs, context):
     counts_b = read_launches()
     print(f'  {path_s:.2f} s, kernel launches {counts_b}')
     require(len(levels) == 10
-            and counts_b == only(pnet_flat=40, crop_resize=8),
-            f'expected 40 pnet_flat and 8 crop_resize launches, got '
-            f'{counts_b}')
+            and counts_b == only(pnet_flat=40, crop_resize=8, nms_greedy=4),
+            f'expected 40 pnet_flat, 8 crop_resize and 4 nms_greedy '
+            f'launches, got {counts_b}')
     refs = [det.detect_batch(images[i:i + 16]) for i in range(0, 64, 16)]
     got = {k: np.concatenate([o[k] for o in outs])
            for k in ('valid', 'boxes', 'landmarks', 'scores')}
@@ -1565,9 +1579,9 @@ def slice7_phases(rng, context):
         wall = time.perf_counter() - t0
         counts = read_launches()
         require(counts == only(pnet_pyramid=4, dense_warp=warps,
-                               crop_resize=12),
-                f'{align}: expected 4 pnet_pyramid, {warps} dense_warp and '
-                f'12 crop_resize launches, got {counts}')
+                               crop_resize=12, nms_greedy=4),
+                f'{align}: expected 4 pnet_pyramid, {warps} dense_warp, '
+                f'12 crop_resize and 4 nms_greedy launches, got {counts}')
         rows, row_labels, row_files, dropped = kept_rows(
             np.concatenate([o['embeddings'] for o in outs]),
             np.concatenate([o['valid'] for o in outs]), labels, names)
@@ -2670,8 +2684,9 @@ def slice11_phases(rng, context):
         found += fd.detect_images(list(images[i:i + 16]))
     path_s = time.monotonic() - t0
     counts = read_launches()
-    require(counts == only(crop_resize=4),
-            f'expected 4 crop_resize launches (RoIAlign) alone, got {counts}')
+    require(counts == only(crop_resize=4, nms_greedy=8),
+            f'expected 4 crop_resize (RoIAlign) and 8 nms_greedy (2 a batch) '
+            f'launches alone, got {counts}')
     n_found = sum(len(f) for f in found)
     matched = sum(evaluation.match_detections(
         gt, np.array([[b.left, b.top, b.left + b.width, b.top + b.height]
@@ -2885,8 +2900,9 @@ def slice11_phases(rng, context):
         print(f'  {name}: {int(out["valid"].sum())} valid boxes in 16 scenes, '
               'finite')
     counts = read_launches()
-    require(counts == only(crop_resize=3),
-            f'phase 40: expected 3 crop_resize launches alone, got {counts}')
+    require(counts == only(crop_resize=3, nms_greedy=3),
+            f'phase 40: expected 3 crop_resize and 3 nms_greedy launches '
+            f'alone, got {counts}')
     print(f'phases 35-40: {time.monotonic() - started:.1f} s')
 
 
@@ -3536,9 +3552,9 @@ def slice13_phases(rng, context):
         files_s = time.perf_counter() - t0
         counts = read_launches()
         decoder = decoder_line(native)
-        require(counts == only(pnet_pyramid=4, crop_resize=8),
-                f'expected 4 pnet_pyramid (2 batches a bucket) and 8 '
-                f'crop_resize launches, got {counts}')
+        require(counts == only(pnet_pyramid=4, crop_resize=8, nms_greedy=4),
+                f'expected 4 pnet_pyramid (2 batches a bucket), 8 '
+                f'crop_resize and 4 nms_greedy launches, got {counts}')
         # the cascade one batch at a time on the same decoded canvases
         worst_box = worst_score = 0.0
         decode_ms, pil_ms, cascade_ms, n_found = [], [], [], 0
@@ -3617,9 +3633,9 @@ def slice13_phases(rng, context):
               f'first 8 scenes; kernel launches {counts}; {pipe_s:.3f} s = '
               f'{32 / pipe_s:.1f} scenes/s on {smi}')
         require(counts == only(pnet_pyramid=4, dense_warp=4,
-                               crop_resize=12),
-                f'expected 4 pnet_pyramid, 4 dense_warp and 12 crop_resize '
-                f'launches, got {counts}')
+                               crop_resize=12, nms_greedy=4),
+                f'expected 4 pnet_pyramid, 4 dense_warp, 12 crop_resize and '
+                f'4 nms_greedy launches, got {counts}')
         require(np.array_equal(valid[:8], want['valid'])
                 and np.abs(norms - 1).max() < 1e-3 and agree.min() >= 0.999,
                 'process_files differs from process_batch on the arrays')
@@ -3755,9 +3771,10 @@ def crop_phase(rng, context):
         pipe.process_batch(context['images'][16:32])
         counts[align] = read_launches()
         require(counts[align] == only(pnet_pyramid=1, dense_warp=warps,
-                                      crop_resize=3),
-                f'{align}: expected 1 pnet_pyramid, {warps} dense_warp and 3 '
-                f'crop_resize launches a batch, got {counts[align]}')
+                                      crop_resize=3, nms_greedy=1),
+                f'{align}: expected 1 pnet_pyramid, {warps} dense_warp, 3 '
+                f'crop_resize and 1 nms_greedy launches a batch, got '
+                f'{counts[align]}')
     print(f'  one FacePipeline batch of 16: launches {counts}')
     crowd = batch_ms['crowd-b8']
     return {
@@ -3775,6 +3792,122 @@ def crop_phase(rng, context):
     }
 
 
+
+# float32 operations of one pair test and one area of the greedy NMS
+# (benchmark/core/retina_work.py counts them the same way)
+NMS_PAIR_OPS, NMS_AREA_OPS = 16, 7
+# (label, frames, candidates, IoU threshold, mode, offset, keep capacity)
+NMS_CELLS = (('RetinaFace', 8, 5000, 0.4, 'union', 1.0, 750),
+             ("MTCNN's O-Net", 16, 32, 0.7, 'min', 0.0, None))
+
+
+def nms_candidates(rng, b, k, shape=(1080, 1920)):
+    """Sorted candidates on the card: boxes [b, k, 4] of 16-300 px over
+    the frame, 90% valid, in descending order of uniform scores."""
+    import torch
+    centre = rng.uniform(0, 1, (b, k, 2)) * np.array(shape[::-1])
+    side = rng.uniform(16, 300, (b, k, 1)) * rng.uniform(0.7, 1.4, (b, k, 2))
+    boxes = np.concatenate([centre - side / 2, centre + side / 2], -1)
+    valid = rng.uniform(0, 1, (b, k)) < 0.9
+    scores = np.where(valid, rng.uniform(0, 1, (b, k)), -np.inf)
+    order = np.argsort(-scores, axis=1, kind='stable')
+    boxes = np.take_along_axis(boxes, order[..., None], 1)
+    valid = np.take_along_axis(valid, order, 1)
+    return (torch.from_numpy(boxes.astype(np.float32)).cuda(),
+            torch.from_numpy(valid).cuda())
+
+
+def nms_pair_tests(boxes, valid, iou_threshold, mode, offset):
+    """[B] pair tests that exact greedy NMS makes on sorted candidates:
+    each kept candidate against every later valid one that no kept
+    candidate before it suppressed (py_cpu_nms's count). A later j is
+    tested by the kept i < j up to and including its first kept
+    suppressor."""
+    import torch
+
+    from facenet_tpu_torch.ops import nms
+    b, k = valid.shape
+    keep, _ = nms.greedy_keep_plain(boxes, valid, iou_threshold, mode,
+                                    offset)
+    later = torch.ones(k, k, dtype=torch.bool, device=boxes.device).triu(1)
+    by_kept = ((nms.iou_matrix(boxes, mode, offset) > iou_threshold)
+               & later & keep[..., :, None])              # [B, i, j]
+    index = torch.arange(k, device=boxes.device).expand(b, k)
+    first = torch.where(by_kept.any(1), by_kept.to(torch.uint8).argmax(1),
+                        k)
+    limit = torch.minimum(first + 1, index)
+    before = torch.nn.functional.pad(torch.cumsum(keep, -1), (1, 0))
+    return (torch.gather(before, 1, limit) * valid).sum(-1)
+
+
+def nms_phase(rng, context):
+    """Phase 50 (see the module docstring); returns the kernels-line entry
+    of the NMS kernel, its times those of a RetinaFace batch."""
+    import torch
+
+    from facenet_tpu_torch.ops import nms
+    from facenet_tpu_torch.pipeline import FacePipeline
+    from facenet_tpu_torch.utils.timing import cuda_ms, device_ms
+
+    smi = context['smi']
+    print('[50] the NMS kernel vs the loop at RetinaFace\'s and O-Net\'s '
+          f'shapes, then times on {smi}: the kernel in device time, the '
+          'loop by CUDA events')
+    entry = None
+    for label, b, k, thr, mode, offset, cap in NMS_CELLS:
+        boxes, valid = nms_candidates(rng, b, k)
+        keep, kept = nms.greedy_keep(boxes, valid, thr, mode, offset, cap)
+        torch.cuda.synchronize()
+        want, count = nms.greedy_keep_plain(boxes, valid, thr, mode, offset,
+                                            cap)
+        require(torch.equal(keep, want) and torch.equal(kept, count),
+                f'NMS kernel != loop ({label})')
+        kern_ms = device_ms(lambda: nms.greedy_keep(
+            boxes, valid, thr, mode, offset, cap), reps=20)[0]
+        loop_ms = cuda_ms(lambda: nms.greedy_keep_plain(
+            boxes, valid, thr, mode, offset, cap), reps=1, windows=1)[0]
+        n = valid.sum(1).double()
+        tested = nms_pair_tests(boxes, valid, thr, mode, offset).double()
+        ops = float((NMS_PAIR_OPS * tested + NMS_AREA_OPS * n).sum())
+        nbytes = float(17 * n.sum() + b * (k + 4))
+        bound_ms = max(ops / H100_FP32_FLOPS, nbytes / H100_HBM_BYTES) * 1e3
+        print(f'  {label}: {b} x {k} candidates, kept {int(kept.min())}-'
+              f'{int(kept.max())} a frame, equal to the loop; kernel '
+              f'{kern_ms:.4f} ms, bound {bound_ms:.4f} ms ({ops:.3e} '
+              f'operations at the FP32 rate) = {bound_ms / kern_ms:.1%}, '
+              f'loop {loop_ms:.2f} ms')
+        if entry is None:
+            entry = {'name': 'nms_greedy', 'route': 'cuda',
+                     'source': 'facenet_tpu_torch/csrc/nms_greedy.cu',
+                     'replaces': None, 'max_abs_err': 0.0, 'ms': kern_ms,
+                     'plain_ms': loop_ms, 'bound_ms': bound_ms,
+                     'bound_by': 'operations', 'library_ms': None}
+        del boxes, valid, keep, want
+
+    frames = rng.integers(0, 256, (8, 1080, 1920, 3), dtype=np.uint8)
+    pipe = FacePipeline(context['facenet'], image_shape=(1080, 1920),
+                        align='landmarks', num_faces=16,
+                        detector='retinaface')
+    pipe.process_batch(frames)                                  # warm
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipe.process_batch(frames)
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    print(f'  RetinaFace-R50 FacePipeline batch of 8 1080x1920 frames: '
+          f'{int(out["valid"].sum())} valid slots of 128, '
+          f'{int(out["candidates"].min())}-{int(out["candidates"].max())} '
+          f'candidates a frame, {wall * 1e3:.1f} ms, launches {counts}')
+    require(counts == only(nms_greedy=1, crop_resize=1, dense_warp=1),
+            f'expected 1 nms_greedy, 1 crop_resize and 1 dense_warp launch '
+            f'a RetinaFace batch, got {counts}')
+    entry['launches'] = counts['nms_greedy']
+    del pipe
+    torch.cuda.empty_cache()
+    return entry
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3788,7 +3921,8 @@ def main():
     from facenet_tpu_torch.models.inception_resnet_v1 import (
         InceptionResnetV1, init_variables)
     from facenet_tpu_torch.detectors.mtcnn import pnet
-    from facenet_tpu_torch.ops import crop, cuda_build, pair_counts, stem, warp
+    from facenet_tpu_torch.ops import (crop, cuda_build, nms, pair_counts,
+                                       stem, warp)
     from facenet_tpu_torch.tools import probe_native
     from facenet_tpu_torch.utils.timing import card_line, cuda_ms
     from facenet_tpu_torch.utils.timing import spread as _spread
@@ -3807,7 +3941,7 @@ def main():
     # 2. build every kernel, one nvcc each, all started together
     t0 = time.monotonic()
     kernels = (pair_counts.KERNEL, warp.KERNEL, pnet.KERNEL,
-               pnet.LEVEL_KERNEL, stem.KERNEL, crop.KERNEL,
+               pnet.LEVEL_KERNEL, stem.KERNEL, crop.KERNEL, nms.KERNEL,
                copy_roof_kernel())
     libs = dict(zip((k.name for k in kernels), cuda_build.build_all(kernels)))
     print(f'[2] built {", ".join(k.library_path().name for k in kernels)} '
@@ -4006,10 +4140,11 @@ def main():
     slice12_phases(rng, context)
     slice13_phases(rng, context)
     crop_entry = crop_phase(rng, context)
+    nms_entry = nms_phase(rng, context)
 
     print(f'total {time.monotonic() - started:.1f} s')
     print(json.dumps({'kernels': [pair_entry] + detection + slice3
-                      + [crop_entry]}))
+                      + [crop_entry, nms_entry]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

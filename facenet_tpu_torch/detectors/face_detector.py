@@ -2,7 +2,8 @@
 
 `FaceDetector` / `BoundingBox` / margin-crop `image_processing`, with the
 batched MTCNN cascade (detectors/mtcnn/; 'pypimtcnn' is accepted as an
-alias) or the batched Faster-RCNN (detectors/frcnn/, 'frcnnv3') as the
+alias), the batched Faster-RCNN (detectors/frcnn/, 'frcnnv3') or the
+batched RetinaFace-R50 (detectors/retinaface/, 'retinaface') as the
 backend. Single-image `detect` is kept for API compatibility;
 `detect_images` is the batched path. PIL is imported only where an image
 is decoded or cropped.
@@ -88,23 +89,26 @@ class BoundingBox:
 class FaceDetector:
     """Facade selecting a detection backend.
 
-    Supported: 'mtcnn' (the batched cascade; 'pypimtcnn' is an alias) and
-    'frcnnv3' (the two-stage Faster-RCNN).
+    Supported: 'mtcnn' (the batched cascade; 'pypimtcnn' is an alias),
+    'frcnnv3' (the two-stage Faster-RCNN) and 'retinaface' (RetinaFace-R50,
+    biubug6/Pytorch_Retinaface's cfg_re50).
 
     :param image_shape: the (single) letterbox geometry
     :param image_shapes: optional list of (H, W) letterbox buckets sharing
         one weight set; each input routes to the bucket that avoids
         downscaling where possible (`route_shape`), and each bucket's
         backend is built at first use
-    :param params: the backend's flax-layout param tree; default the
-        bundled weights (`pretrained.load_bundled`)
+    :param params: the backend's flax-layout param tree (RetinaFace: a
+        state dict by the published names); default the bundled weights
+        (`pretrained.load_bundled`)
     :param weights: MTCNN: a ``.npz`` bundle in the `pretrained` format or
         a directory of davidsandberg ``det1/det2/det3.npy`` files (whose
         P-Net regressors assume the 'caffe' base-box convention, the
         default then); Faster-RCNN: a ``.npz`` bundle or a pickled ``.npy``
-        dict (the train_detector app's ``detector_params.npy``)
+        dict (the train_detector app's ``detector_params.npy``);
+        RetinaFace: biubug6's ``.pth`` state dict (``Resnet50_Final.pth``)
     :param device: torch device; None means cuda (raises without a GPU)
-    :param kwargs: forwarded to `MTCNN` or `FasterRCNN`
+    :param kwargs: forwarded to `MTCNN`, `FasterRCNN` or `RetinaFace`
     """
 
     def __init__(self, detector='mtcnn', image_shape=(480, 640),
@@ -128,6 +132,11 @@ class FaceDetector:
                 params = (pretrained.load_params(weights)
                           if str(weights).endswith('.npz')
                           else np.load(weights, allow_pickle=True).item())
+        elif detector == 'retinaface':
+            if params is None and weights:
+                import torch
+                params = torch.load(weights, map_location='cpu',
+                                    weights_only=True)
         else:
             raise ValueError(
                 'Undefined face detector type {}'.format(detector))
@@ -142,6 +151,11 @@ class FaceDetector:
         device = self.device
 
         def build(shape):
+            if detector == 'retinaface':
+                from facenet_tpu_torch.detectors.retinaface.detector import (
+                    RetinaFace)
+                return RetinaFace(image_shape=shape, params=params,
+                                  device=device, **kwargs)
             if detector == 'frcnnv3':
                 from facenet_tpu_torch.detectors.frcnn.detector import (
                     FasterRCNN)

@@ -216,19 +216,39 @@ def similarity_transform_from_points(src, dst):
 
 
 def invert_affine(m):
-    """Invert [..., 2, 3] affine matrices."""
+    """Invert [..., 2, 3] affine matrices. A singular one gives non-finite
+    entries rather than an error: checking would read the device's status
+    on the host, a wait inside a pipeline's enqueue."""
     a = m[..., :2]
     t = m[..., 2:]
-    inv_a = torch.linalg.inv(a)
+    inv_a = torch.linalg.inv_ex(a)[0]
     return torch.cat([inv_a, -inv_a @ t], dim=-1)
+
+
+_CONSTANTS = {}
+
+
+def _constants(out_size, device):
+    """(the canonical template [5, 2], an output square's corners [4, 2])
+    for `out_size`, float32 on `device`, copied there once: a copy from
+    pageable host memory would hold the host until the device had run
+    everything queued before it."""
+    key = (int(out_size), str(device))
+    if key not in _CONSTANTS:
+        s = float(out_size)
+        corners = [[0.0, 0.0], [s - 1.0, 0.0], [0.0, s - 1.0],
+                   [s - 1.0, s - 1.0]]
+        _CONSTANTS[key] = (
+            torch.from_numpy(canonical_landmarks(out_size)).to(device),
+            torch.tensor(corners, dtype=torch.float32, device=device))
+    return _CONSTANTS[key]
 
 
 def _output_to_input(landmarks, out_size):
     """[..., 2, 3] matrices taking an aligned output pixel to the source
     pixel: the inverse of the similarity that sends the landmarks onto the
     canonical template."""
-    template = torch.from_numpy(canonical_landmarks(out_size)).to(
-        landmarks.device)
+    template, _ = _constants(out_size, landmarks.device)
     return invert_affine(similarity_transform_from_points(landmarks.float(),
                                                           template))
 
@@ -251,8 +271,7 @@ def dense_warp_inputs(images, landmarks, out_size):
     b, k = landmarks.shape[:2]
     inv = _output_to_input(landmarks, s)
     t = int(-(-int(s * 1.4 + 16) // 8) * 8)
-    corners = torch.tensor([[0.0, 0.0], [s - 1.0, 0.0], [0.0, s - 1.0],
-                            [s - 1.0, s - 1.0]], device=images.device)
+    _, corners = _constants(s, images.device)
     src = corners @ inv[..., :2].transpose(-1, -2) + inv[..., None, :, 2]
     lo = src.amin(dim=-2) - 4.0                                  # [B, K, 2]
     hi = src.amax(dim=-2) + 4.0

@@ -1,19 +1,23 @@
 """Face pipeline: scenes -> detected, aligned and embedded faces.
 
-`FacePipeline` runs the MTCNN cascade, the alignment (margin crop or
-5-point landmark warp) and the fused embedding forward on one device with
-no host round trip between the stages: a batch of scenes is enqueued as a
-whole and fetched once.
+`FacePipeline` runs a detector (the MTCNN cascade by default, or
+RetinaFace-R50), the alignment (margin crop or 5-point landmark warp) and
+the fused embedding forward on one device with no host round trip between
+the stages: a batch of scenes is enqueued as a whole and fetched once.
+RetinaFace's five points come in MTCNN's order (eyes, nose, mouth
+corners), so the landmark alignment is the same for both.
 
 Alignment modes:
 - 'crop': margin-expanded box crop resized straight to the model input.
-- 'landmarks': 5-point similarity warp to the canonical template; on the
+- 'landmarks': 5-point similarity warp to the canonical template, in the
+  two-stage 'dense' form of `align_by_landmarks` on every device: on the
   card all B x num_faces crops of a batch go through one launch of the
-  dense-warp kernel.
+  dense-warp kernel, and the CPU computes the same resampling with its
+  plain version.
 
 Spans (`utils.profiling`): ``pipeline.h2d`` (the scenes' copy),
-``mtcnn.pnet`` / ``.rnet`` / ``.onet`` (the cascade), ``pipeline.align``,
-``pipeline.embed``.
+``mtcnn.pnet`` / ``.rnet`` / ``.onet`` (the cascade) or ``retinaface.*``
+(`detectors.retinaface.detector`), ``pipeline.align``, ``pipeline.embed``.
 """
 
 from __future__ import annotations
@@ -32,19 +36,21 @@ class FacePipeline:
 
     :param model: a `facenet_tpu_torch.FaceNet`, a model Config, or an
         exported model directory
-    :param image_shape: (H, W) of the cascade; letterbox inputs to it first
-        (detectors.mtcnn.letterbox.letterbox_batch)
+    :param image_shape: (H, W) of the detector; letterbox inputs to it
+        first (detectors.mtcnn.letterbox.letterbox_batch)
     :param align: 'crop' | 'landmarks'
     :param margin: box-relative margin fraction for align='crop'
     :param num_faces: embedding slots per image (the first `num_faces`
-        cascade outputs; `valid` marks real detections)
+        detector outputs, best first; `valid` marks real detections)
     :param device: torch device; None means cuda (raises without a GPU)
-    :param detector_kwargs: forwarded to the MTCNN cascade (thresholds,
+    :param detector: 'mtcnn' | 'retinaface' (`FaceDetector`'s names)
+    :param detector_kwargs: forwarded to the detector (thresholds,
         capacities, weights via `params`, ...)
     """
 
     def __init__(self, model, image_shape=(480, 640), align='crop',
-                 margin=0.2, num_faces=1, device=None, **detector_kwargs):
+                 margin=0.2, num_faces=1, device=None, detector='mtcnn',
+                 **detector_kwargs):
         from facenet_tpu_torch import FaceNet
         from facenet_tpu_torch.detectors.face_detector import FaceDetector
         from facenet_tpu_torch.device import resolve_device
@@ -70,10 +76,14 @@ class FacePipeline:
         self.image_shape = (int(image_shape[0]), int(image_shape[1]))
         self.size = int(self.facenet._forward.image_size)
 
-        detector = FaceDetector(detector='mtcnn',
-                                image_shape=self.image_shape,
-                                device=self.device, **detector_kwargs)
-        self.backend = detector.backend_for(self.image_shape)
+        if detector not in ('mtcnn', 'pypimtcnn', 'retinaface'):
+            raise ValueError(f"detector must be 'mtcnn' or 'retinaface' (a "
+                             f'detector with landmarks), got {detector!r}')
+        self.detector = detector
+        facade = FaceDetector(detector=detector,
+                              image_shape=self.image_shape,
+                              device=self.device, **detector_kwargs)
+        self.backend = facade.backend_for(self.image_shape)
 
     @torch.inference_mode()
     def _step(self, images):
@@ -86,7 +96,7 @@ class FacePipeline:
             scenes = images.float()
             if self.align == 'landmarks':
                 crops = align_by_landmarks(scenes, out['landmarks'][:, :k],
-                                           size)
+                                           size, method='dense')
             else:
                 boxes = out['boxes'][:, :k]
                 wh = boxes[..., 2:4] - boxes[..., 0:2]
@@ -97,14 +107,13 @@ class FacePipeline:
             flat = torch.clamp(crops + 0.5, 0, 255).to(torch.uint8)
         with profiling.annotate('pipeline.embed'):
             emb = self.facenet.dispatch(flat.reshape(b * k, size, size, 3))
-        return {
-            'embeddings': emb.reshape(b, k, -1),
-            'boxes': out['boxes'][:, :k],
-            'scores': out['scores'][:, :k],
-            'valid': out['valid'][:, :k],
-            'landmarks': out['landmarks'][:, :k],
-            'overflow': out['overflow'],
-        }
+        result = {key: value for key, value in out.items()
+                  if key not in ('boxes', 'scores', 'valid', 'landmarks')}
+        result.update(embeddings=emb.reshape(b, k, -1),
+                      boxes=out['boxes'][:, :k], scores=out['scores'][:, :k],
+                      valid=out['valid'][:, :k],
+                      landmarks=out['landmarks'][:, :k])
+        return result
 
     def dispatch(self, images):
         """Enqueue one batch and return its outputs as device tensors,
@@ -190,6 +199,7 @@ class FacePipeline:
 
     def __repr__(self):
         return (f'class {type(self).__name__}\n'
+                f'detector: {self.detector}\n'
                 f'align: {self.align}\n'
                 f'image shape: {self.image_shape}\n'
                 f'faces per image: {self.num_faces}')

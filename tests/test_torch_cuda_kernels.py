@@ -18,7 +18,7 @@ from facenet_tpu_torch.detectors import pretrained
 from facenet_tpu_torch.detectors.mtcnn import networks, pnet
 from facenet_tpu_torch.models import irv1_fast
 from facenet_tpu_torch.models.inception_resnet_v1 import init_variables
-from facenet_tpu_torch.ops import crop, pair_counts, stem, warp
+from facenet_tpu_torch.ops import crop, nms, pair_counts, stem, warp
 from facenet_tpu_torch.ops.preprocessing import image_processing
 from facenet_tpu_torch.tools import try_pallas_pnet, try_pnet_v3
 from facenet_tpu_torch.utils import synthetic
@@ -120,6 +120,106 @@ def test_crop_wrapper_raises_on_what_the_kernel_does_not_take():
         crop.crop_and_resize(imgs.requires_grad_(), boxes, 5)
     with torch.no_grad():                     # no gradient asked for
         assert crop.crop_and_resize(imgs, boxes, 5).shape == (1, 2, 5, 5, 3)
+
+
+def _nms_case(case, b, k, seed=4):
+    """([B, K, 4] boxes, [B, K] scores, [B, K] valid) on the CPU: boxes of
+    16-300 px over a 1080 x 1920 frame ('random'), or the same with scores
+    on 5 levels, whole rows repeated and degenerate boxes ('tied')."""
+    rng = np.random.RandomState(seed)
+    centre = rng.uniform(0, 1, (b, k, 2)) * np.array([1920, 1080])
+    side = rng.uniform(16, 300, (b, k, 1)) * rng.uniform(0.7, 1.4, (b, k, 2))
+    boxes = np.concatenate([centre - side / 2, centre + side / 2], -1)
+    scores = rng.uniform(0, 1, (b, k))
+    valid = rng.uniform(0, 1, (b, k)) < 0.9
+    if case == 'tied':
+        scores = np.round(scores * 4) / 4
+        boxes[:, 1::7] = boxes[:, 0::7][:, :boxes[:, 1::7].shape[1]]
+        scores[:, 1::7] = scores[:, 0::7][:, :scores[:, 1::7].shape[1]]
+        boxes[:, 3::11, 2:] = boxes[:, 3::11, :2]          # zero area
+    return (torch.from_numpy(boxes.astype(np.float32)),
+            torch.from_numpy(scores.astype(np.float32)),
+            torch.from_numpy(valid))
+
+
+def _nms_sorted(boxes, scores, valid):
+    """The candidates in descending score order (a stable sort, as
+    `nms.nms_mask` makes them), and the order."""
+    order = torch.argsort(-torch.where(valid, scores, float('-inf')), dim=-1,
+                          stable=True)
+    return (torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)),
+            torch.gather(valid, 1, order), order)
+
+
+def _unsorted(keep, order):
+    return torch.zeros_like(keep).scatter(-1, order, keep)
+
+
+def test_nms_wrapper_takes_the_loop_on_cpu():
+    boxes, scores, valid = _nms_case('tied', 2, 40)
+    sb, sv, order = _nms_sorted(boxes, scores, valid)
+    before = nms.greedy_keep.launches
+    for mode, offset in (('union', 0.0), ('min', 1.0)):
+        got, kept = nms.greedy_keep(sb, sv, 0.4, mode, offset)
+        want, count = nms.greedy_keep_plain(sb, sv, 0.4, mode, offset)
+        assert torch.equal(got, want) and torch.equal(kept, count)
+        assert got.any()
+    assert torch.equal(nms.nms_mask(boxes, scores, valid, 0.4, 'min'),
+                       _unsorted(nms.greedy_keep_plain(sb, sv, 0.4,
+                                                       'min')[0], order))
+    assert nms.greedy_keep.launches == before
+    with pytest.raises(ValueError, match='mode'):
+        nms.greedy_keep(boxes, valid, 0.4, mode='max')
+
+
+@pytest.mark.parametrize('max_keep', [None, 0, 7])
+def test_nms_capacity_marks_the_first_kept(max_keep):
+    boxes, scores, valid = _nms_case('random', 3, 64)
+    boxes, valid, _ = _nms_sorted(boxes, scores, valid)
+    every, count = nms.greedy_keep_plain(boxes, valid, 0.4, offset=1.0)
+    keep, kept = nms.greedy_keep(boxes, valid, 0.4, offset=1.0,
+                                 max_keep=max_keep)
+    assert torch.equal(kept, count) and torch.equal(kept, every.sum(-1,
+                                                    dtype=torch.int32))
+    rank = torch.cumsum(every, -1)
+    cap = 64 if max_keep is None else max_keep
+    assert torch.equal(keep, every & (rank <= cap))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k', [32, 5000])
+@pytest.mark.parametrize('case', ['random', 'tied'])
+@pytest.mark.parametrize('mode, offset', [('union', 0.0), ('union', 1.0),
+                                          ('min', 0.0), ('min', 1.0)])
+def test_nms_kernel_keeps_what_the_loop_keeps(k, case, mode, offset):
+    """The NMS kernel's keep mask and kept count are the loop's, bit for
+    bit, on the card and on the CPU, with and without a capacity; and
+    `nms_mask` runs the kernel on the card."""
+    _gpu()
+    b = 8 if k == 5000 else 16
+    boxes, scores, valid = _nms_case(case, b, k)
+    sb, sv, order = _nms_sorted(boxes.cuda(), scores.cuda(), valid.cuda())
+    want, count = nms.greedy_keep_plain(sb, sv, 0.4, mode, offset)
+    before = nms.greedy_keep.launches
+    keep, kept = nms.greedy_keep(sb, sv, 0.4, mode, offset)
+    torch.cuda.synchronize()
+    assert nms.greedy_keep.launches == before + 1
+    assert torch.equal(keep, want) and torch.equal(kept, count)
+    assert int(kept.min()) > 0
+    if k == 32:
+        cpu, cpu_count = nms.greedy_keep_plain(sb.cpu(), sv.cpu(), 0.4, mode,
+                                               offset)
+        assert torch.equal(keep.cpu(), cpu)
+        assert torch.equal(kept.cpu(), cpu_count)
+    if offset == 0.0:
+        got = nms.nms_mask(boxes.cuda(), scores.cuda(), valid.cuda(), 0.4,
+                           mode)
+        assert nms.greedy_keep.launches == before + 2
+        assert torch.equal(got, _unsorted(want, order))
+    keep, kept = nms.greedy_keep(sb, sv, 0.4, mode, offset, max_keep=750)
+    want, count = nms.greedy_keep_plain(sb, sv, 0.4, mode, offset,
+                                        max_keep=750)
+    assert torch.equal(keep, want) and torch.equal(kept, count)
 
 
 def _flat_planes(rng, sh, true_sw, b=2, nan=False):

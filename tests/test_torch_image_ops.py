@@ -59,6 +59,27 @@ def test_similarity_transform_matches_jax():
             np.asarray(jops.invert_affine(jnp.asarray(got))), atol=1e-4)
 
 
+def test_singular_landmarks_give_non_finite_crops_without_raising():
+    """A face whose five landmarks coincide has no similarity onto the
+    template: its inverse, and its crop in either method, come out
+    non-finite (the inverse is not checked, which would wait for the
+    device), while the batch's other face is unharmed."""
+    template = tops.canonical_landmarks(160)
+    lmk = _t(np.stack([np.full((5, 2), 30.0), template / 4 + 10])
+             .astype(np.float32))[None]                      # [1, 2, 5, 2]
+    inv = tops.invert_affine(tops.similarity_transform_from_points(
+        lmk, _t(template)))
+    assert not torch.isfinite(inv[0, 0]).all()
+    assert torch.isfinite(inv[0, 1]).all()
+    imgs = _t(np.random.RandomState(5).uniform(0, 255, (1, 64, 64, 3))
+              .astype(np.float32))
+    for method in ('gather', 'dense'):
+        out = tops.align_by_landmarks(imgs, lmk, 32, method=method)
+        assert out.shape == (1, 2, 32, 32, 3)
+        assert not torch.isfinite(out[0, 0]).all(), method
+        assert torch.isfinite(out[0, 1]).all(), method
+
+
 def test_dense_warp_plain_matches_jax():
     rng = np.random.RandomState(2)
     imgs = rng.uniform(0, 255, (3, 30, 26, 3)).astype(np.float32)

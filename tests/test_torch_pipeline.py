@@ -6,8 +6,8 @@ weights and the scenes of tests/test_pipeline.py.
   cos >= 0.999 on valid slots;
 - landmarks mode against a JAX staged chain, MTCNN.detect_batch ->
   align_by_landmarks(method='dense') -> FaceNet (JAX's own FacePipeline
-  takes 'gather' on the CPU): the port's pipeline (which takes 'gather' on
-  the CPU too) and the port's own staged chain through the dense warp
+  takes 'gather' on the CPU): the port's pipeline (which takes 'dense' on
+  every device) and the port's own staged chain through the dense warp
   (B2's plain version) both reach cos >= 0.99.
 """
 
