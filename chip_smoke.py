@@ -355,6 +355,16 @@ Phases, each of which fails the run (non-zero exit) when its check fails:
      it; then one FacePipeline batch of 8 1080x1920 frames through
      RetinaFace-R50 (random weights): exactly 1 NMS, 1 crop and 1 B2
      launch, no P-Net, and its wall time.
+ 51. the embedders' staging (utils/staging.py) at irv1.embed-b1024's host
+     batch (1,024 x 160 x 160 x 3 uint8, 78.6 MB): medians of three
+     windows of the pageable copy and of the pinned copy alone (CUDA
+     events), and of the host's copy into pinned memory (host clock,
+     Tensor.copy_ and np.copyto); then 8 distinct batches through
+     evaluate_embeddings(FaceNet.dispatch) twice, and twice through a
+     pageable copy written here (the way before the staging), in turns:
+     rows equal to phase 4's FaceNet on each batch copied synchronously,
+     img/s and facenet.h2d's host ms a batch; staged, 8
+     facenet.h2d.stage spans and no facenet.h2d.slot_wait.
 
 The GPU machine may lack yaml, h5py, sklearn and click, so nothing here
 imports them at module level: the model bundle is built in memory, and
@@ -3908,6 +3918,100 @@ def nms_phase(rng, context):
     return entry
 
 
+STAGE_SHAPE = (1024, 160, 160, 3)   # irv1.embed-b1024's host batch
+
+
+def _host_ms(fn, reps=5, windows=3):
+    """Median over `windows` of the host's ms a call of fn(), after one."""
+    fn()
+    times = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) / reps * 1e3)
+    return float(np.median(times)), times
+
+
+def staging_phase(rng, context):
+    """Phase 51 (see the module docstring)."""
+    import torch
+
+    from facenet_tpu_torch.facenet import evaluate_embeddings, renormalized
+    from facenet_tpu_torch.utils import profiling
+    from facenet_tpu_torch.utils.timing import cuda_ms
+    from facenet_tpu_torch.utils.timing import spread as _spread
+
+    smi, facenet = context['smi'], context['facenet']
+    print(f'[51] host batches of {STAGE_SHAPE} uint8 to the card on {smi}: '
+          'the pageable copy, the staged copy and the host\'s copy into '
+          'pinned memory, then evaluate_embeddings staged and pageable')
+    batches = [rng.integers(0, 256, STAGE_SHAPE, dtype=np.uint8)
+               for _ in range(8)]
+    host = torch.from_numpy(batches[0])
+    pinned = torch.empty(STAGE_SHAPE, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(STAGE_SHAPE, dtype=torch.uint8, device='cuda')
+    mb = host.numel() / 1e6
+    pageable_ms, pageable_all = cuda_ms(
+        lambda: card.copy_(host, non_blocking=True), reps=5)
+    dma_ms, dma_all = cuda_ms(
+        lambda: card.copy_(pinned, non_blocking=True), reps=5)
+    copy_ms, copy_all = _host_ms(lambda: pinned.copy_(host))
+    copyto_ms, copyto_all = _host_ms(
+        lambda: np.copyto(pinned.numpy(), batches[0]))
+    print(f'  {mb:.1f} MB: pageable copy {pageable_ms:.3f} ms '
+          f'({_spread(pageable_all)}; {mb / pageable_ms:.2f} GB/s), pinned '
+          f'copy alone {dma_ms:.3f} ms ({_spread(dma_all)}; '
+          f'{mb / dma_ms:.2f} GB/s); the host\'s copy into pinned memory: '
+          f'Tensor.copy_ {copy_ms:.3f} ms ({_spread(copy_all)}), np.copyto '
+          f'{copyto_ms:.3f} ms ({_spread(copyto_all)}) on '
+          f'{torch.get_num_threads()} threads')
+    del pinned, card
+
+    def pageable(images):
+        # the copy as it was before the staging: pageable, on the compute
+        # stream, then the embedder's pass-through
+        return facenet.dispatch(torch.from_numpy(images).to(
+            'cuda', non_blocking=True))
+
+    want = renormalized(np.concatenate([
+        facenet.dispatch(torch.from_numpy(b).cuda()).cpu().numpy()
+        for b in batches]))
+    rows = {}
+    for label, fn in (('staged', facenet.dispatch), ('pageable', pageable),
+                      ('staged', facenet.dispatch),
+                      ('pageable', pageable)):
+        torch.cuda.synchronize()
+        profiling.span_summary(reset=True)
+        profiling.record_spans(True)
+        t0 = time.perf_counter()
+        try:
+            got, labels = evaluate_embeddings(
+                fn, ((b, np.arange(i * len(b), (i + 1) * len(b)))
+                     for i, b in enumerate(batches)))
+        finally:
+            profiling.record_spans(False)
+        wall = time.perf_counter() - t0
+        summary = profiling.span_summary(reset=True)
+        require(np.array_equal(got, want)
+                and np.array_equal(labels, np.arange(len(want))),
+                f'{label} evaluate_embeddings != the synchronous batches')
+        counts = {name: summary.get(name, {}).get('count', 0)
+                  for name in ('facenet.h2d.stage', 'facenet.h2d.slot_wait')}
+        h2d_ms = summary['facenet.h2d']['total_s'] / len(batches) * 1e3
+        rows.setdefault(label, []).append(len(want) / wall)
+        print(f'  evaluate_embeddings {label}: {len(batches)} batches, rows '
+              f'equal to the synchronous batches, {len(want) / wall:.0f} '
+              f'img/s, facenet.h2d {h2d_ms:.2f} ms a batch, span counts '
+              f'{counts}')
+        if label == 'staged':
+            require(counts == {'facenet.h2d.stage': len(batches),
+                               'facenet.h2d.slot_wait': 0},
+                    f'expected {len(batches)} staged batches and no slot '
+                    f'wait, got {counts}')
+    print(f'  img/s staged {rows["staged"]} vs pageable {rows["pageable"]}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4141,6 +4245,7 @@ def main():
     slice13_phases(rng, context)
     crop_entry = crop_phase(rng, context)
     nms_entry = nms_phase(rng, context)
+    staging_phase(rng, context)
 
     print(f'total {time.monotonic() - started:.1f} s')
     print(json.dumps({'kernels': [pair_entry] + detection + slice3

@@ -40,6 +40,7 @@ from facenet_tpu_torch.ops import int8_conv
 from facenet_tpu_torch.ops.preprocessing import image_processing
 from facenet_tpu_torch.ops.stem import stem_forward
 from facenet_tpu_torch.utils import profiling
+from facenet_tpu_torch.utils.staging import HostStager
 
 # entries an int8 quantizer must leave in bf16 when the fused stem is to
 # run: the kernel takes bf16 weights
@@ -355,6 +356,7 @@ class FastEmbedder:
         self.image_size = int(image_size)
         self.normalization = int(normalization)
         self.normalize = bool(normalize)
+        self.stager = HostStager(self.device)
         if quantize:
             self.params = quantize_fast_params(
                 self.params, self.cfg, calib_images, self.image_size,
@@ -368,10 +370,11 @@ class FastEmbedder:
 
     def __call__(self, images):
         """uint8 [B, H, W, 3] (numpy or tensor) -> [B, D] float32 tensor on
-        this embedder's device, not synchronized."""
+        this embedder's device, not synchronized. A host batch reaches a
+        CUDA device through `HostStager`'s pinned ring and copy stream; the
+        caller may reuse its array once the call returns."""
         with profiling.annotate('facenet.h2d'):
-            images = torch.as_tensor(images).to(self.device,
-                                                non_blocking=True)
+            images = self.stager(images)
         with profiling.annotate('facenet.forward'), torch.inference_mode():
             return fast_forward(self.params, self.cfg, images,
                                 self.image_size, self.normalization,

@@ -30,8 +30,15 @@
 The port's spans (each wraps calls, never a compiled or captured region):
 
   ``facenet.h2d``, ``facenet.forward``   `FastEmbedder` / `FastEmbedderV2`:
-      the uint8 batch's copy to the device (the host waits on a pageable
-      copy), then preprocessing, the network and normalization;
+      the uint8 batch on its way to the device (a host batch for a CUDA
+      device: the host's copy into a pinned slot and the copy's launch on
+      `staging.HostStager`'s stream; a batch already on the device: none),
+      then preprocessing, the network and normalization;
+  ``facenet.h2d.stage``, ``facenet.h2d.slot_wait``   `HostStager`: the
+      host's copy of a batch into a pinned slot, one a staged batch; the
+      wait for a slot's previous copy to the device, entered only when that
+      copy had not finished (its count is how often the ring was too
+      shallow);
   ``embeddings.fetch``, ``embeddings.finish``   `facenet.evaluate_embeddings`:
       the wait for a batch's embeddings on the host, and the concatenation
       and float64 renormalization after the last batch;
