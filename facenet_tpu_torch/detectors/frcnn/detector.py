@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from facenet_tpu_torch.detectors.batched import BatchedDetector
 from facenet_tpu_torch.detectors.evaluation import iou_matrix
 from facenet_tpu_torch.detectors.frcnn.network import (
     STRIDE, Backbone, RoIHead, RPN, anchor_grid, decode_deltas, encode_deltas)
@@ -39,8 +40,11 @@ def _clip(boxes, h, w):
                        dim=-1)
 
 
-class FasterRCNN:
-    """Batched Faster-RCNN face detector.
+class FasterRCNN(BatchedDetector):
+    """Batched Faster-RCNN face detector (the `BatchedDetector` front end).
+
+    `detect_batch` returns numpy 'boxes' [B, K, 4], 'scores' [B, K] and
+    'valid' [B, K].
 
     :param image_shape: (H, W) of the letterboxed input
     :param threshold: face probability kept (the reference's 0.7)
@@ -133,34 +137,6 @@ class FasterRCNN:
         valid = valid & batched_nms_mask(boxes, probs, valid, 0.3)
         return {'boxes': boxes, 'scores': torch.where(valid, probs, 0.0),
                 'valid': valid}
-
-    def to_device(self, images):
-        """uint8 [B, H, W, 3] array or tensor -> tensor on this device,
-        checked against the detector's geometry."""
-        if not isinstance(images, torch.Tensor):
-            images = torch.from_numpy(np.ascontiguousarray(images,
-                                                           dtype=np.uint8))
-        if tuple(images.shape[1:3]) != self.image_shape:
-            raise ValueError(
-                f'expected {self.image_shape} images, got '
-                f'{tuple(images.shape[1:3])} — use '
-                'letterbox.letterbox_batch()')
-        return images.to(self.device, non_blocking=True)
-
-    def detect_batch_async(self, images):
-        """Enqueue the two stages on a uint8 [B, H, W, 3] batch and return
-        the output dict of device tensors without waiting for it."""
-        with torch.inference_mode():
-            return self._detect(self.to_device(images))
-
-    def finalize_batch(self, out_device):
-        """Fetch a `detect_batch_async` result as numpy arrays."""
-        return {k: v.cpu().numpy() for k, v in out_device.items()}
-
-    def detect_batch(self, images):
-        """Detect faces in a uint8 [B, H, W, 3] batch: numpy 'boxes'
-        [B, K, 4], 'scores' [B, K], 'valid' [B, K]."""
-        return self.finalize_batch(self.detect_batch_async(images))
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from facenet_tpu_torch.detectors.batched import BatchedDetector
 from facenet_tpu_torch.detectors.mtcnn import pnet as pnet_kernel
 from facenet_tpu_torch.detectors.mtcnn.networks import (ONet, PNet, RNet,
                                                         normalize_crops)
@@ -117,12 +118,16 @@ def level_resize_matrices(image_shape, scale):
     return v, hm
 
 
-class MTCNN:
-    """Batched MTCNN detector.
+class MTCNN(BatchedDetector):
+    """Batched MTCNN detector (the `BatchedDetector` front end).
 
         det = MTCNN(image_shape=(480, 640))          # device=None: cuda
         out = det.detect_batch(images_uint8)         # [B, H, W, 3]
         out['boxes'], out['scores'], out['landmarks'], out['valid']
+
+    `detect_batch` returns numpy 'boxes' [B, K, 4], 'scores' [B, K],
+    'landmarks' [B, K, 5, 2], 'valid' [B, K] and the per-stage 'overflow'
+    counts.
 
     :param params: flax-layout param tree {'pnet', 'rnet', 'onet'} of
         arrays (`pretrained.load_bundled`); None initializes the networks
@@ -138,6 +143,10 @@ class MTCNN:
         own, and raise here.
     :param device: torch device; None means cuda (raises without a GPU)
     """
+
+    overflow_warning = (
+        'MTCNN capacity overflow: dropped valid proposals %s '
+        '(raise max_proposals/max_refined/max_outputs for dense scenes)')
 
     def __init__(self, image_shape=(480, 640), min_face_size=20,
                  factor=0.709, thresholds=(0.6, 0.7, 0.7),
@@ -327,50 +336,6 @@ class MTCNN:
             # per-image candidates lost to each capacity
             'overflow': overflow,
         }
-
-    # ------------------------------------------------------------------
-    def to_device(self, images):
-        """uint8 [B, H, W, 3] array or tensor -> tensor on this device,
-        checked against the cascade's geometry."""
-        if not isinstance(images, torch.Tensor):
-            images = torch.from_numpy(np.ascontiguousarray(images,
-                                                           dtype=np.uint8))
-        if tuple(images.shape[1:3]) != self.image_shape:
-            raise ValueError(
-                f'expected {self.image_shape} images, got '
-                f'{tuple(images.shape[1:3])} — use '
-                'letterbox.letterbox_batch()')
-        return images.to(self.device, non_blocking=True)
-
-    def detect_batch_async(self, images):
-        """Enqueue the cascade on a uint8 [B, H, W, 3] batch and return the
-        output dict of device tensors without waiting for it."""
-        return self._detect(self.to_device(images))
-
-    def finalize_batch(self, out_device):
-        """Fetch a `detect_batch_async` result as numpy arrays and report
-        capacity drops."""
-        out = {k: v.cpu().numpy() for k, v in out_device.items()
-               if k != 'overflow'}
-        out['overflow'] = {k: v.cpu().numpy()
-                           for k, v in out_device['overflow'].items()}
-        dropped = {stage: int(counts.sum())
-                   for stage, counts in out['overflow'].items()
-                   if counts.sum() > 0}
-        if dropped:
-            from facenet_tpu_torch.logging import logger
-            logger.warning(
-                'MTCNN capacity overflow: dropped valid proposals %s '
-                '(raise max_proposals/max_refined/max_outputs for dense '
-                'scenes)', dropped)
-        return out
-
-    def detect_batch(self, images):
-        """Detect faces in a uint8 [B, H, W, 3] batch (H, W must match
-        image_shape; letterbox first with `letterbox.letterbox_batch`).
-        Returns numpy 'boxes' [B, K, 4], 'scores' [B, K], 'landmarks'
-        [B, K, 5, 2], 'valid' [B, K] and the per-stage 'overflow' counts."""
-        return self.finalize_batch(self.detect_batch_async(images))
 
     def align_batch(self, images, landmarks, out_size=160):
         """Landmark alignment of one face per image -> numpy

@@ -32,20 +32,22 @@ NMS.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
+from facenet_tpu_torch.detectors.batched import BatchedDetector
 from facenet_tpu_torch.detectors.retinaface import network
 from facenet_tpu_torch.device import resolve_device
 from facenet_tpu_torch.ops.nms import greedy_keep
 from facenet_tpu_torch.utils import profiling
 
 
-class RetinaFace:
-    """Batched RetinaFace-R50 detector (the MTCNN backend's interface:
-    `to_device`, `_detect`, `detect_batch_async`, `finalize_batch`,
-    `detect_batch`).
+class RetinaFace(BatchedDetector):
+    """Batched RetinaFace-R50 detector (the `BatchedDetector` front end).
+
+    `detect_batch` returns numpy 'boxes' [B, K, 4], 'scores' [B, K],
+    'landmarks' [B, K, 5, 2], 'valid' [B, K], 'candidates' [B] and the
+    'overflow' counts.
 
     :param image_shape: (H, W) of the frames (letterbox inputs to it first,
         `detectors.mtcnn.letterbox.letterbox_batch`)
@@ -55,6 +57,9 @@ class RetinaFace:
     :param dtype: the network's activations (bfloat16; float32 for tests)
     :param device: torch device; None means cuda (raises without a GPU)
     """
+
+    overflow_warning = ('RetinaFace capacity overflow: dropped %s (raise '
+                        'top_k / keep_top_k for dense scenes)')
 
     def __init__(self, image_shape=(1080, 1920), params=None, seed=0,
                  dtype=torch.bfloat16, confidence_threshold=0.02, top_k=5000,
@@ -152,46 +157,3 @@ class RetinaFace:
         """uint8 [B, H, W, 3] tensor on this device -> output dict of
         tensors (see the module docstring)."""
         return self.select(*self.dense(images))
-
-    # ------------------------------------------------------------------
-    def to_device(self, images):
-        """uint8 [B, H, W, 3] array or tensor -> tensor on this device,
-        checked against the detector's geometry."""
-        if not isinstance(images, torch.Tensor):
-            images = torch.from_numpy(np.ascontiguousarray(images,
-                                                           dtype=np.uint8))
-        if tuple(images.shape[1:3]) != self.image_shape:
-            raise ValueError(
-                f'expected {self.image_shape} images, got '
-                f'{tuple(images.shape[1:3])} — use '
-                'letterbox.letterbox_batch()')
-        return images.to(self.device, non_blocking=True)
-
-    def detect_batch_async(self, images):
-        """Enqueue a uint8 [B, H, W, 3] batch and return the output dict of
-        device tensors without waiting for it."""
-        return self._detect(self.to_device(images))
-
-    def finalize_batch(self, out_device):
-        """Fetch a `detect_batch_async` result as numpy arrays and report
-        capacity drops."""
-        out = {k: v.cpu().numpy() for k, v in out_device.items()
-               if k != 'overflow'}
-        out['overflow'] = {k: v.cpu().numpy()
-                           for k, v in out_device['overflow'].items()}
-        dropped = {stage: int(counts.sum())
-                   for stage, counts in out['overflow'].items()
-                   if counts.sum() > 0}
-        if dropped:
-            from facenet_tpu_torch.logging import logger
-            logger.warning(
-                'RetinaFace capacity overflow: dropped %s (raise top_k / '
-                'keep_top_k for dense scenes)', dropped)
-        return out
-
-    def detect_batch(self, images):
-        """Detect faces in a uint8 [B, H, W, 3] batch (H, W must match
-        image_shape). Returns numpy 'boxes' [B, K, 4], 'scores' [B, K],
-        'landmarks' [B, K, 5, 2], 'valid' [B, K], 'candidates' [B] and the
-        'overflow' counts."""
-        return self.finalize_batch(self.detect_batch_async(images))

@@ -26,7 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-import test_torch_train as T
+import torch_testing as T
 from facenet_tpu.ops import losses as jax_losses
 from facenet_tpu.train import softmax as jax_softmax
 from facenet_tpu.models.inception_resnet_v1 import \
@@ -36,15 +36,6 @@ from facenet_tpu.models.inception_resnet_v1 import \
 from facenet_tpu_torch.models import inception_resnet_v1 as irv1
 from facenet_tpu_torch.ops import losses
 from facenet_tpu_torch.train.softmax import SoftmaxClassifier, create_backbone
-
-
-def carried_variables():
-    tree = SoftmaxClassifier(create_backbone(T.TINY), T.C).init_variables(3)
-    rng = np.random.RandomState(4)
-    stats = jax.tree_util.tree_map(
-        lambda a: np.abs(rng.normal(0.5, 0.2, a.shape)).astype(np.float32),
-        tree['batch_stats'])
-    return {'params': tree['params'], 'batch_stats': stats}
 
 
 def jax_gradient(variables, loss, images, labels, dtype):
@@ -108,7 +99,7 @@ def worst(tree, reference):
 
 
 def main():
-    variables = carried_variables()
+    variables = T.carried_variables(T.TINY)
     for name in ('softmax', 'triplet'):
         loss = T.LOSSES[name]
         images, labels = T._batches(1, pk=name == 'triplet',

@@ -34,24 +34,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-import test_torch_train_v2 as T
+import torch_testing as T
 from facenet_tpu.models.inception_resnet_v1 import \
     l2_regularization as jax_l2
+from facenet_tpu.models.inception_resnet_v2 import \
+    InceptionResnetV2 as JaxIRv2
 from facenet_tpu.ops import losses as jax_losses
 from facenet_tpu.train import softmax as jax_softmax
 from facenet_tpu_torch.models import inception_resnet_v1 as irv1
+from facenet_tpu_torch.models import inception_resnet_v2 as irv2
 from facenet_tpu_torch.ops import losses
 from facenet_tpu_torch.train.softmax import SoftmaxClassifier, create_backbone
-
-
-def carried():
-    model = SoftmaxClassifier(create_backbone(T.MODEL), T.C)
-    tree = model.init_variables(seed=3)
-    rng = np.random.RandomState(4)
-    stats = jax.tree_util.tree_map(
-        lambda a: np.abs(rng.normal(0.5, 0.2, a.shape)).astype(np.float32),
-        tree['batch_stats'])
-    return {'params': tree['params'], 'batch_stats': stats}
 
 
 def step0_gradients(variables, images, labels):
@@ -69,7 +62,7 @@ def step0_gradients(variables, images, labels):
 
     with jax.enable_x64(True):
         want = jax.grad(loss)(put(variables['params']))['backbone']
-    port = SoftmaxClassifier(create_backbone(T.MODEL), T.C)
+    port = SoftmaxClassifier(create_backbone(T.MODEL_V2), T.C)
     port.from_flax_variables(variables)
     port.double()
     logits, _ = port(torch.from_numpy(images), train=True,
@@ -93,7 +86,7 @@ def step0_gradients(variables, images, labels):
 def float32_gradients(variables):
     images, _ = T._batches(1, seed=5)[0]
     weight = np.random.RandomState(6).randn(8, 32).astype(np.float32)
-    flax = T.JaxIRv2(config=T.TINY_V2, dtype=jnp.float32)
+    flax = JaxIRv2(config=T.TINY_V2, dtype=jnp.float32)
     bb = {'params': variables['params']['backbone'],
           'batch_stats': variables['batch_stats']['backbone']}
 
@@ -104,7 +97,7 @@ def float32_gradients(variables):
         return jnp.sum(out * weight)
 
     want = jax.jit(jax.grad(loss))(bb['params'])
-    port = T.irv2.InceptionResnetV2(T.TINY_V2).from_flax_variables(bb)
+    port = irv2.InceptionResnetV2(T.TINY_V2).from_flax_variables(bb)
     (port(torch.from_numpy(images), train=True)
      * torch.from_numpy(weight)).sum().backward()
     got = T._grads(port)
@@ -126,7 +119,7 @@ def weights(state):
 
 
 def port_states(variables, batches):
-    trainer, state = T._port_trainer(variables, torch.float64)
+    trainer, state = T._port_trainer_v2(variables, torch.float64)
     states = []
     for images, labels in batches:
         state, _ = trainer.step_fn(state, *trainer.placed(images, labels))
@@ -138,7 +131,7 @@ def forced_steps(variables, batches, jax_states):
     """Each step of the port from the state JAX reached before it: the
     worst leaf of the weights and statistics, of Adam's first and of its
     second moment."""
-    trainer, state = T._port_trainer(variables, torch.float64)
+    trainer, state = T._port_trainer_v2(variables, torch.float64)
     start = {**variables, **jax.tree_util.tree_map(
         np.zeros_like, {'mu': jax_states[0]['mu'],
                         'nu': jax_states[0]['nu']})}
@@ -161,7 +154,7 @@ def decisions(tree, images):
     """The sign of every ReLU's input and the choice of every max-pool of
     one float64 train-mode forward of the TINY IRv2 from a variables tree,
     in call order, each with the name of the module that makes it."""
-    trainer, state = T._port_trainer(tree, torch.float64)
+    trainer, state = T._port_trainer_v2(tree, torch.float64)
     backbone = state.model.backbone
     names = {m: n for n, m in backbone.named_modules()}
     stack, out = [], []
@@ -212,7 +205,7 @@ def flips(port_tree, jax_tree, images):
 
 def main():
     torch.set_num_threads(4)
-    variables = carried()
+    variables = T.carried_variables(T.MODEL_V2)
     batches = T._batches(3, seed=9)
     print('float32 train-mode gradients, port vs flax jitted: '
           f'{float32_gradients(variables):.3e}')

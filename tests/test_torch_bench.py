@@ -27,6 +27,7 @@ print('IMPORTED', bad)
 def test_bench_tiny_on_cpu_prints_its_lines():
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     env['BENCH_TINY'] = '1'
+    env['OMP_NUM_THREADS'] = '2'     # as `torch_testing.few_threads`
     proc = subprocess.run([sys.executable, '-c', _BENCH], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]

@@ -15,6 +15,7 @@ from PIL import Image
 from facenet_tpu_torch.detectors import evaluation
 from facenet_tpu_torch.detectors.face_detector import BoundingBox, FaceDetector
 from facenet_tpu_torch.utils.synthetic import render_scene
+from torch_testing import few_threads  # noqa: F401
 
 SHAPE = (256, 256)
 

@@ -29,6 +29,7 @@ from facenet_tpu_torch.config import Config
 from facenet_tpu_torch.models.inception_resnet_v1 import init_variables
 from facenet_tpu_torch.utils.tfrecord import TFRecord
 from span_recording import spans  # noqa: F401
+from torch_testing import few_threads  # noqa: F401
 
 TINY = {'block35': {'repeat': 1}, 'block17': {'repeat': 1},
         'block8_1': {'repeat': 1}, 'output': {'size': 32}}

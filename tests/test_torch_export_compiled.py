@@ -33,8 +33,7 @@ from facenet_tpu_torch.config import Config
 from facenet_tpu_torch.models.inception_resnet_v1 import (InceptionResnetV1,
                                                            init_variables)
 from facenet_tpu_torch.ops import int8_conv
-from test_torch_import_weights import TINY, randomized_variables
-from test_torch_train import few_threads  # noqa: F401
+from torch_testing import TINY, few_threads, randomized_variables  # noqa: F401
 
 
 def _bundle(variables, model_class='InceptionResnetV1', config=TINY):

@@ -39,6 +39,7 @@ from facenet_tpu_torch.config import Config
 from facenet_tpu_torch.train import classifier
 
 from conftest import make_embeddings
+from torch_testing import few_threads  # noqa: F401
 
 JAX_STEPS = {}      # normalized -> JAX's jitted step, compiled once
 
@@ -48,16 +49,6 @@ VARIANTS = {
     True: ('FaceToFaceNormalizedEmbeddingsClassifier',
            {'alpha': 9.0, 'threshold': 0.9}),
 }
-
-
-@pytest.fixture(scope='module', autouse=True)
-def few_threads():
-    """Two torch threads: the suite runs six workers on the machine's
-    cores (restored after the module)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _classes(normalized, seed=0, n_classes=4, per_class=12):

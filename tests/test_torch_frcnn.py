@@ -50,18 +50,9 @@ from facenet_tpu_torch.detectors import evaluation, pretrained
 from facenet_tpu_torch.detectors.face_detector import FaceDetector
 from facenet_tpu_torch.detectors.frcnn import detector, network
 from facenet_tpu_torch.utils.synthetic import render_scene
+from torch_testing import few_threads  # noqa: F401
 
 SMALL = (128, 128)
-
-
-@pytest.fixture(scope='module', autouse=True)
-def few_threads():
-    """Two torch threads: the suite runs six workers on the machine's
-    cores (restored after the module)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope='module')

@@ -56,6 +56,7 @@ from facenet_tpu_torch.train.checkpoint import CheckpointManager
 from facenet_tpu_torch.train.softmax import (SoftmaxClassifier,
                                              SoftmaxTrainer, create_backbone)
 from torch_grid_worker import grid_modes
+from torch_testing import few_threads  # noqa: F401
 
 TINY = {'block35': {'repeat': 1}, 'block17': {'repeat': 1},
         'block8_1': {'repeat': 1}, 'output': {'size': 32}}
@@ -92,14 +93,6 @@ def _batch(rng, pk):
     images = np.clip(bases[labels] + 30 * rng.randn(8, 160, 160, 3),
                      0, 255).astype(np.uint8)
     return images, labels
-
-
-@pytest.fixture(scope='module', autouse=True)
-def few_threads():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope='module')

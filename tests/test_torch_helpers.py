@@ -19,7 +19,7 @@ from facenet_tpu_torch import facenet, h5utils, ioutils
 from facenet_tpu_torch.config import Config
 from facenet_tpu_torch.detectors import pretrained
 from facenet_tpu_torch.models.inception_resnet_v1 import InceptionResnetV1
-from test_torch_train import few_threads  # noqa: F401
+from torch_testing import few_threads  # noqa: F401
 
 
 def test_pil_array_round_trips_equal_jax():

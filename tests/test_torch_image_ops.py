@@ -16,6 +16,7 @@ from facenet_tpu.ops import image_ops as jops
 from facenet_tpu.ops.pallas_warp import dense_warp_pallas
 from facenet_tpu_torch.ops import image_ops as tops
 from facenet_tpu_torch.ops import warp
+from torch_testing import few_threads  # noqa: F401
 
 
 def _rot(th, tx, ty, s=1.0):

@@ -25,37 +25,9 @@ from facenet_tpu_torch.models import import_weights as iw
 from facenet_tpu_torch.models.inception_resnet_v1 import (InceptionResnetV1,
                                                            init_variables)
 from facenet_tpu_torch.models.irv1_fast import build_fast_params
-from test_torch_train import few_threads  # noqa: F401
+from torch_testing import TINY, few_threads, randomized_variables  # noqa: F401
 
-TINY = {'block35': {'repeat': 1}, 'block17': {'repeat': 1},
-        'block8_1': {'repeat': 1}, 'output': {'size': 32}}
 FIXTURE = Path(__file__).parent / 'fixtures' / 'irv1_tfslim_scopes.txt'
-
-
-def _map(tree, fn, path=()):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn, path + (k,)) for k, v in tree.items()}
-    return fn(path, tree)
-
-
-def randomized_variables(seed=0):
-    """TINY variables whose BN statistics and biases are off their init,
-    so that the fold does work."""
-    variables = init_variables(TINY, seed=seed)
-    rng = np.random.RandomState(seed + 1)
-
-    def params(path, leaf):
-        if leaf.ndim == 1:
-            return rng.normal(0, 0.2, leaf.shape).astype(np.float32)
-        return leaf
-
-    def stats(path, leaf):
-        if path[-1] == 'mean':
-            return rng.normal(0, 0.3, leaf.shape).astype(np.float32)
-        return rng.uniform(0.5, 1.5, leaf.shape).astype(np.float32)
-
-    return {'params': _map(variables['params'], params),
-            'batch_stats': _map(variables['batch_stats'], stats)}
 
 
 def _datasets(h5file):

@@ -46,6 +46,7 @@ print('TOOL-OK')
 
 def _run(args, cwd):
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    env['OMP_NUM_THREADS'] = '2'     # as `torch_testing.few_threads`
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=300)
 

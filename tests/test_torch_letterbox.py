@@ -20,6 +20,7 @@ from facenet_tpu.detectors.mtcnn import cascade as jcascade
 from facenet_tpu_torch.detectors.face_detector import FaceDetector
 from facenet_tpu_torch.detectors.mtcnn import letterbox
 from facenet_tpu_torch.utils.synthetic import render_scene
+from torch_testing import few_threads  # noqa: F401
 
 
 @pytest.fixture(scope='module')

@@ -11,7 +11,7 @@ from facenet_tpu import logging as jax_logging
 from facenet_tpu_torch import logging as port_logging
 from facenet_tpu_torch.config import Config
 from facenet_tpu_torch.utils import synthetic
-from test_torch_train import few_threads  # noqa: F401
+from torch_testing import few_threads  # noqa: F401
 
 
 def test_configure_logging_writes_the_file_as_jax(tmp_path):

@@ -22,6 +22,7 @@ from facenet_tpu.ops import losses as jax_losses
 from facenet_tpu.ops import lr_schedules as jax_lr
 from facenet_tpu_torch.config import Config
 from facenet_tpu_torch.ops import losses, lr_schedules
+from torch_testing import few_threads  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -20,6 +20,7 @@ from facenet_tpu.models.inception_resnet_v1 import \
 from facenet_tpu_torch.models import irv1_fast
 from facenet_tpu_torch.models.inception_resnet_v1 import (InceptionResnetV1,
                                                            init_variables)
+from torch_testing import few_threads  # noqa: F401
 
 TINY = {'block35': {'repeat': 2}, 'block17': {'repeat': 2},
         'block8_1': {'repeat': 2}, 'output': {'size': 64}}

@@ -29,6 +29,7 @@ from facenet_tpu_torch.models import irv2_fast
 from facenet_tpu_torch.models.inception_resnet_v2 import (InceptionResnetV2,
                                                            check_input_config,
                                                            init_variables)
+from torch_testing import few_threads  # noqa: F401
 
 TINY = {'repeat': [1, 1, 1], 'embedding_size': 64}
 

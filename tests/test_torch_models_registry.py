@@ -12,7 +12,7 @@ import torch
 from facenet_tpu import models as jax_models
 from facenet_tpu_torch import export, models
 from facenet_tpu_torch.config import Config
-from test_torch_train import few_threads  # noqa: F401
+from torch_testing import few_threads  # noqa: F401
 
 TINY_V1 = {'block35': {'repeat': 1}, 'block17': {'repeat': 1},
            'block8_1': {'repeat': 1}, 'output': {'size': 32}}

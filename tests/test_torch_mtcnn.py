@@ -30,6 +30,7 @@ from facenet_tpu_torch.detectors import evaluation, pretrained
 from facenet_tpu_torch.detectors.mtcnn import (cascade, letterbox, networks,
                                                pnet)
 from facenet_tpu_torch.detectors.mtcnn.weights import validate_params
+from torch_testing import few_threads  # noqa: F401
 
 
 @pytest.fixture(scope='module')

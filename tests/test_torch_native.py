@@ -40,6 +40,7 @@ from facenet_tpu import native as jnative
 from facenet_tpu_torch import dataset, native
 from facenet_tpu_torch.config import Config
 from facenet_tpu_torch.utils.synthetic import render_scene
+from torch_testing import few_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

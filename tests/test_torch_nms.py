@@ -10,6 +10,7 @@ import torch
 
 from facenet_tpu.ops import nms as jnms
 from facenet_tpu_torch.ops import nms as tnms
+from torch_testing import few_threads  # noqa: F401
 
 
 def _boxes(rng, b=3, k=40):

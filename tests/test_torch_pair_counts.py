@@ -14,6 +14,7 @@ from facenet_tpu.ops.pallas_stats import pair_below_counts as pallas_counts
 from facenet_tpu_torch import statistics
 from facenet_tpu_torch.ops import pair_counts
 from oracle import oracle_confusion
+from torch_testing import few_threads  # noqa: F401
 
 
 @pytest.fixture(scope='module')

@@ -58,6 +58,7 @@ from facenet_tpu_torch.train.softmax import (HEAD, SoftmaxClassifier,
                                              create_backbone)
 from facenet_tpu_torch.utils.synthetic import write_identity_dataset
 from torch_grid_worker import LAYOUTS, embed, parallel_modes
+from torch_testing import few_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = {'block35': {'repeat': 1}, 'block17': {'repeat': 1},
@@ -90,16 +91,6 @@ def _batches():
     rng = np.random.RandomState(0)
     return [(rng.randint(0, 256, (n, 4, 4, 3), dtype=np.uint8),
              rng.randint(0, 3, n).astype(np.int32)) for n in (16, 16, 5, 1)]
-
-
-@pytest.fixture(scope='module', autouse=True)
-def few_threads():
-    """Two torch threads here (the in-process app), one in each spawned
-    rank: the suite runs six workers on the machine's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope='module')

@@ -21,6 +21,7 @@ from PIL import Image
 from facenet_tpu.config import Config
 from facenet_tpu.utils.synthetic import render_scene
 from span_recording import spans  # noqa: F401
+from torch_testing import few_threads  # noqa: F401
 
 TINY_MODEL = Config({'block35': {'repeat': 1}, 'block17': {'repeat': 1},
                      'block8_1': {'repeat': 1}, 'output': {'size': 32}})

@@ -34,6 +34,7 @@ from facenet_tpu.utils.synthetic import render_scene
 from facenet_tpu_torch.detectors import pretrained
 from facenet_tpu_torch.detectors.mtcnn import cascade, networks, pnet
 from facenet_tpu_torch.tools import try_pnet_v3
+from torch_testing import few_threads  # noqa: F401
 
 FLAT_SHAPES = [(24, 100), (61, 83), (40, 129)]
 LEVEL_SHAPES = [(24, 24), (61, 83), (40, 129)]

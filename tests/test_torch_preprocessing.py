@@ -8,6 +8,7 @@ import torch
 
 from facenet_tpu.ops.preprocessing import image_processing as jax_processing
 from facenet_tpu_torch.ops.preprocessing import image_processing
+from torch_testing import few_threads  # noqa: F401
 
 
 @pytest.mark.parametrize('side', [160, 182, 96])

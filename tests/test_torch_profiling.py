@@ -21,7 +21,7 @@ from facenet_tpu.utils import profiling as jax_profiling
 from facenet_tpu_torch.config import Config
 from facenet_tpu_torch.utils import profiling
 from span_recording import spans  # noqa: F401
-from test_torch_train import few_threads  # noqa: F401
+from torch_testing import few_threads  # noqa: F401
 
 
 def test_step_timer_counts_and_throughput():

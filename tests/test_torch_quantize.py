@@ -41,6 +41,7 @@ from facenet_tpu_torch.models.inception_resnet_v2 import \
     init_variables as init_v2
 from facenet_tpu_torch.ops.int8_conv import (int8_sums, int8_sums_plain,
                                              kernel_oihw, quantized_entry)
+from torch_testing import few_threads  # noqa: F401
 
 TINY = {'block35': {'repeat': 1}, 'block17': {'repeat': 1},
         'block8_1': {'repeat': 1}, 'output': {'size': 32}}

@@ -18,6 +18,7 @@ from benchmark.core import weights
 from benchmark.reference import retinaface as ref
 from facenet_tpu_torch.detectors.retinaface import network
 from facenet_tpu_torch.detectors.retinaface.detector import RetinaFace
+from torch_testing import few_threads  # noqa: F401
 
 SHAPE = (64, 96)
 CFG = {'in_channel': 256, 'out_channel': 256, 'anchors': 2,

@@ -18,6 +18,7 @@ from facenet_tpu.models.inception_resnet_v1 import \
     InceptionResnetV1 as JaxIRv1
 from facenet_tpu_torch import dataset
 from facenet_tpu_torch.apps.validate import main
+from torch_testing import few_threads  # noqa: F401
 
 TINY = {'block35': {'repeat': 1}, 'block17': {'repeat': 1},
         'block8_1': {'repeat': 1}, 'output': {'size': 32}}

@@ -14,6 +14,7 @@ from facenet_tpu import statistics as jax_statistics
 from facenet_tpu.config import Config as JaxConfig
 from facenet_tpu_torch import statistics
 from facenet_tpu_torch.config import Config
+from torch_testing import few_threads  # noqa: F401
 
 
 @pytest.fixture(scope='module')

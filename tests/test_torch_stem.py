@@ -33,6 +33,7 @@ from facenet_tpu.ops.preprocessing import image_processing as jax_processing
 from facenet_tpu_torch.models import irv1_fast
 from facenet_tpu_torch.ops import stem
 from facenet_tpu_torch.ops.preprocessing import image_processing
+from torch_testing import few_threads  # noqa: F401
 
 TINY = {'block35': {'repeat': 1}, 'block17': {'repeat': 1},
         'block8_1': {'repeat': 1}, 'output': {'size': 32}}

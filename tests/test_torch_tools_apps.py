@@ -16,8 +16,7 @@ from facenet_tpu_torch import export, h5utils
 from facenet_tpu_torch.apps import dataset as dataset_app
 from facenet_tpu_torch.apps import export_model, model_info
 from facenet_tpu_torch.models.inception_resnet_v1 import InceptionResnetV1
-from test_torch_import_weights import TINY, randomized_variables
-from test_torch_train import few_threads  # noqa: F401
+from torch_testing import TINY, few_threads, randomized_variables  # noqa: F401
 
 
 @pytest.fixture(scope='module')

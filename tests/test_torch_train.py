@@ -39,7 +39,6 @@ import itertools
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 import yaml
@@ -53,10 +52,8 @@ from facenet_tpu.models.inception_resnet_v1 import \
     InceptionResnetV1 as JaxIRv1
 from facenet_tpu.models.inception_resnet_v1 import \
     l2_regularization as jax_l2
-from facenet_tpu.ops import lr_schedules as jax_lr
 from facenet_tpu.ops.preprocessing import center_crop as jax_center_crop
 from facenet_tpu.ops.preprocessing import random_augment as jax_augment
-from facenet_tpu.train import softmax as jax_softmax
 from facenet_tpu_torch import callbacks, dataset, export
 from facenet_tpu_torch.config import Config
 from facenet_tpu_torch.models import inception_resnet_v1 as irv1
@@ -64,121 +61,12 @@ from facenet_tpu_torch.ops.preprocessing import (augment_with, center_crop,
                                                   random_augment)
 from facenet_tpu_torch.train.checkpoint import CheckpointManager
 from facenet_tpu_torch.train.softmax import (SoftmaxClassifier,
-                                             SoftmaxTrainer,
                                              create_backbone,
                                              step_on_devices)
-from facenet_tpu_torch.utils.synthetic import write_identity_dataset
 from span_recording import spans  # noqa: F401
-
-TINY = {'block35': {'repeat': 1}, 'block17': {'repeat': 1},
-        'block8_1': {'repeat': 1}, 'output': {'size': 32}}
-C = 4
-SCHEDULE = [[1, 1e-3], [2, 4e-4], [100, 2e-4]]     # one step an epoch
-LOSSES = {
-    'softmax': {'center_factor': 0.0, 'triplet_factor': 0.0},
-    'softmax + center': {'center_factor': 0.5, 'center_alfa': 0.9,
-                         'triplet_factor': 0.0},
-    'triplet': {'softmax_factor': 0.0, 'triplet_factor': 1.0,
-                'triplet_margin': 0.2, 'center_factor': 0.0},
-}
-
-
-def _batches(n, pk=False, seed=0, size=8):
-    """uint8 batches of `size`: a class base image plus noise; class-major
-    P x K (4 x 2) labels when `pk`, random labels otherwise."""
-    rng = np.random.RandomState(seed)
-    bases = rng.randint(0, 255, (C, 160, 160, 3)).astype(np.float32)
-    out = []
-    for _ in range(n):
-        labels = (np.repeat(np.arange(C), 2) if pk
-                  else rng.randint(0, C, size)).astype(np.int32)
-        images = np.clip(bases[labels] + 30 * rng.randn(size, 160, 160, 3),
-                         0, 255).astype(np.uint8)
-        out.append((images, labels))
-    return out
-
-
-def _train_cfg(loss, **train):
-    return Config({
-        'image': {'size': 160, 'normalization': 0},
-        'train': {'adam_epsilon': 0.1, 'epoch': {'size': 1},
-                  'learning_rate': {'schedule': SCHEDULE}, **train},
-        'loss': loss,
-    })
-
-
-@pytest.fixture(scope='module', autouse=True)
-def few_threads():
-    """Two torch threads: the suite runs six workers on the machine's
-    cores, and a worker whose CPU convolutions ask for all of them waits
-    on the others' (restored after the module)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
-
-
-@pytest.fixture(scope='module')
-def variables():
-    """The carried variables, BN statistics moved off their init."""
-    model = SoftmaxClassifier(create_backbone(TINY), C)
-    tree = model.init_variables(seed=3)
-    rng = np.random.RandomState(4)
-    stats = jax.tree_util.tree_map(
-        lambda a: np.abs(rng.normal(0.5, 0.2, a.shape)).astype(np.float32),
-        tree['batch_stats'])
-    return {'params': tree['params'], 'batch_stats': stats}
-
-
-def _jax_run(variables, loss, batches, dtype=jnp.float32, jit=True):
-    """JAX's own step over `batches`: per-step metrics and the final
-    state as numpy trees. Weights are held in float64 when `dtype` is
-    (call under ``jax.enable_x64(True)``), else in float32. `jit` false
-    runs the step op by op (see tests/test_torch_train_float64.py)."""
-    model = jax_softmax.SoftmaxClassifier(
-        backbone=JaxIRv1(config=TINY, dtype=dtype), nrof_classes=C,
-        dtype=dtype)
-    tx = optax.adam(jax_lr.piecewise_schedule(SCHEDULE, 1), eps=0.1)
-    step = jax_softmax.make_train_step(model, tx, JaxConfig(loss))
-    if jit:
-        step = jax.jit(step)
-    wdt = jnp.float64 if dtype == jnp.float64 else jnp.float32
-
-    def put(tree):
-        return jax.tree_util.tree_map(lambda a: jnp.asarray(a, wdt), tree)
-
-    params = put(variables['params'])
-    centers = (jnp.zeros((C, 32), wdt) if loss['center_factor'] else None)
-    state = jax_softmax.TrainState(
-        step=jnp.zeros((), jnp.int32), params=params,
-        batch_stats=put(variables['batch_stats']),
-        opt_state=tx.init(params), centers=centers,
-        rng=jax.random.PRNGKey(0))
-    metrics = []
-    for images, labels in batches:
-        state, m = step(state, images, labels)
-        metrics.append({k: float(v) for k, v in m.items()})
-    host = jax.tree_util.tree_map(np.asarray, {
-        'params': state.params, 'batch_stats': state.batch_stats,
-        'centers': state.centers})
-    return metrics, host
-
-
-def _port_trainer(variables, loss, dtype=torch.float32, **train):
-    trainer = SoftmaxTrainer(_train_cfg(loss, **train), C, model_cfg=TINY,
-                             device='cpu', dtype=dtype)
-    state = trainer.init_state(seed=0)
-    state.model.from_flax_variables(variables)
-    return trainer, state
-
-
-def _port_run(variables, loss, batches, dtype=torch.float32, **train):
-    trainer, state = _port_trainer(variables, loss, dtype, **train)
-    metrics = []
-    for images, labels in batches:
-        state, m = trainer.step_fn(state, *trainer.placed(images, labels))
-        metrics.append({k: float(v) for k, v in m.items()})
-    return metrics, state
+from torch_testing import (C, LOSSES, TINY, _app_config, _batches,  # noqa: F401
+                           _check_run, _jax_run, _port_run, _port_trainer,
+                           _train_cfg, few_threads, identity_tree, variables)
 
 
 def _assert_trees_close(got, want, atol, path=''):
@@ -452,14 +340,6 @@ def test_train_epoch_draws_exactly_steps_per_epoch(variables, tmp_path):
     assert state.step == 2
 
 
-@pytest.fixture(scope='module')
-def identity_tree(tmp_path_factory):
-    root = tmp_path_factory.mktemp('identities')
-    write_identity_dataset(root / 'train', 5, 6, size=160, seed=0)
-    write_identity_dataset(root / 'test', range(5, 9), 5, size=160, seed=1)
-    return root
-
-
 def _first(pipeline, n):
     return list(itertools.islice(iter(pipeline), n))
 
@@ -565,39 +445,6 @@ def test_bundles_load_across_packages(tmp_path, variables):
     back = export.load_model(tmp_path / 'jax')
     _assert_trees_close(back.variables,
                         model.backbone.to_flax_variables(), 0)
-
-
-def _app_config(root, run_dir):
-    return {
-        'dataset': {'path': str(root / 'train')},
-        'model': {'path': str(run_dir), 'config': TINY},
-        'batch_size': 8,
-        'seed': 0,
-        'train': {'adam_epsilon': 0.1,
-                  'epoch': {'max_nrof_epochs': 2, 'size': 2},
-                  'learning_rate': {'schedule': [[2, 0.01]]}},
-        'loss': {'center_factor': 0.0, 'triplet_factor': 0.0},
-        'image': {'size': 160, 'normalization': 0},
-        'mesh': {'data': 1, 'model': 1},
-        'checkpoint': {'max_to_keep': 1},
-        'validate': {'every_n_epochs': 1,
-                     'dataset': {'path': str(root / 'test')},
-                     'validate': {'metric': 0, 'nrof_folds': 2,
-                                  'far_target': 0.1}},
-    }
-
-
-def _check_run(run_root):
-    runs = list(run_root.glob('*'))
-    assert len(runs) == 1
-    run = runs[0]
-    report = (run / 'logs' / 'report.txt').read_text()
-    assert 'epoch [2/2]' in report
-    assert report.count('FaceToFaceValidation') == 2       # every epoch
-    assert 'MaximumAccuracy' in report
-    assert (run / 'model.yaml').is_file() and (run / 'params.msgpack').is_file()
-    assert list((run / 'checkpoints').glob('*'))
-    return run
 
 
 def test_train_softmax_app_through_both_clis(identity_tree, tmp_path):

@@ -49,19 +49,10 @@ from facenet_tpu_torch.detectors.face_detector import FaceDetector
 from facenet_tpu_torch.detectors.mtcnn import weights
 from facenet_tpu_torch.train import mtcnn
 from facenet_tpu_torch.utils import synthetic
+from torch_testing import few_threads  # noqa: F401
 
 BATCH = 64
 NETS = ('pnet', 'rnet', 'onet')
-
-
-@pytest.fixture(scope='module', autouse=True)
-def few_threads():
-    """Two torch threads: the suite runs six workers on the machine's
-    cores (restored after the module)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _crop_batches(net, n, seed):

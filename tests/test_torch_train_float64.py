@@ -30,8 +30,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_train import (LOSSES, _batches, _jax_run, _port_run,
-                              few_threads, variables)   # noqa: F401
+from torch_testing import (LOSSES, _batches, _jax_run, _port_run,
+                           few_threads, variables)   # noqa: F401
 
 
 @pytest.fixture(scope='module', params=sorted(LOSSES))

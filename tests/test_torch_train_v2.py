@@ -22,64 +22,33 @@ statistics moved off their init) and the same uint8 batches:
   * the train app with ``module: inception_resnet_v2`` through both CLIs.
 """
 
-import copy
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 import yaml
 from click.testing import CliRunner
 
 from facenet_tpu import export as jax_export
-from facenet_tpu.config import Config as JaxConfig
 from facenet_tpu.models.inception_resnet_v2 import \
     InceptionResnetV2 as JaxIRv2
-from facenet_tpu.ops import lr_schedules as jax_lr
-from facenet_tpu.train import softmax as jax_softmax
-from facenet_tpu_torch.config import Config
 from facenet_tpu_torch.models import inception_resnet_v1 as irv1
 from facenet_tpu_torch.models import inception_resnet_v2 as irv2
 from facenet_tpu_torch.train.softmax import (SoftmaxClassifier,
-                                             SoftmaxTrainer, create_backbone)
-from test_torch_train import (_app_config, _batches, _check_run,  # noqa: F401
-                              few_threads, identity_tree)
-
-TINY_V2 = {'repeat': [1, 1, 1], 'embedding_size': 32,
-           'keep_probability': 1.0}
-MODEL = {'module': 'inception_resnet_v2', 'config': TINY_V2}
-C = 4
-SCHEDULE = [[1, 1e-3], [2, 4e-4], [100, 2e-4]]     # one step an epoch
-SOFTMAX = {'center_factor': 0.0, 'triplet_factor': 0.0}
-
-
-def _train_cfg(**train):
-    return Config({
-        'image': {'size': 160, 'normalization': 0},
-        'train': {'adam_epsilon': 0.1, 'epoch': {'size': 1},
-                  'learning_rate': {'schedule': SCHEDULE}, **train},
-        'loss': SOFTMAX,
-    })
+                                             create_backbone)
+from torch_testing import C, MODEL_V2 as MODEL, TINY_V2
+from torch_testing import (_adam_moments, _app_config, _batches,  # noqa: F401
+                           _check_run, _grads, _jax_steps, _set_state,
+                           _worst_leaf, carried_variables, few_threads,
+                           identity_tree)
+from torch_testing import _port_trainer_v2 as _port_trainer
 
 
 @pytest.fixture(scope='module')
 def variables():
     """The carried variables, BN statistics moved off their init."""
-    model = SoftmaxClassifier(create_backbone(MODEL), C)
-    tree = model.init_variables(seed=3)
-    rng = np.random.RandomState(4)
-    stats = jax.tree_util.tree_map(
-        lambda a: np.abs(rng.normal(0.5, 0.2, a.shape)).astype(np.float32),
-        tree['batch_stats'])
-    return {'params': tree['params'], 'batch_stats': stats}
-
-
-def _jax_model(dtype):
-    return jax_softmax.SoftmaxClassifier(
-        backbone=JaxIRv2(config=TINY_V2, dtype=dtype), nrof_classes=C,
-        dtype=dtype)
+    return carried_variables(MODEL)
 
 
 def test_train_forward_matches_flax(variables):
@@ -136,101 +105,7 @@ def test_train_forward_matches_flax(variables):
     assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) >= 0.999
 
 
-def _grads(module):
-    """The parameters' gradients as a flax-layout tree (HWIO kernels)."""
-    saved = {}
-    for name, p in module.named_parameters():
-        saved[name] = p.data.clone()
-        p.data.copy_(p.grad)
-    try:
-        params, _ = module.dump_flax()
-    finally:
-        for name, p in module.named_parameters():
-            p.data.copy_(saved[name])
-    return params
-
-
-def _jax_steps(variables, batches):
-    """JAX's own float64 step, op by op (see the module docstring), yielding
-    after each step the metrics and the state: the parameters, the
-    BatchNorm statistics and Adam's moments ('mu', 'nu') and count."""
-    model = _jax_model(jnp.float64)
-    tx = optax.adam(jax_lr.piecewise_schedule(SCHEDULE, 1), eps=0.1)
-    step = jax_softmax.make_train_step(model, tx, JaxConfig(SOFTMAX))
-
-    def put(tree):
-        return jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
-                                      tree)
-
-    params = put(variables['params'])
-    state = jax_softmax.TrainState(
-        step=jnp.zeros((), jnp.int32), params=params,
-        batch_stats=put(variables['batch_stats']),
-        opt_state=tx.init(params), centers=None, rng=jax.random.PRNGKey(0))
-    for images, labels in batches:
-        state, m = step(state, images, labels)
-        adam = state.opt_state[0]
-        yield {k: float(v) for k, v in m.items()}, jax.tree_util.tree_map(
-            np.asarray, {'params': state.params,
-                         'batch_stats': state.batch_stats,
-                         'mu': adam.mu, 'nu': adam.nu,
-                         'count': adam.count})
-
-
-def _port_trainer(variables, dtype, model=MODEL, **train):
-    trainer = SoftmaxTrainer(_train_cfg(**train), C, model_cfg=model,
-                             device='cpu', dtype=dtype)
-    state = trainer.init_state(seed=0)
-    state.model.from_flax_variables(variables)
-    return trainer, state
-
-
-def _set_state(state, jax_state):
-    """`state` moved to a JAX state of `_jax_steps`: the weights, the
-    BatchNorm statistics, Adam's moments and its count (the schedule's
-    step)."""
-    model = state.model
-    model.from_flax_variables(jax_state)
-    moments = copy.deepcopy(model)
-    for key, name in (('mu', 'exp_avg'), ('nu', 'exp_avg_sq')):
-        moments.from_flax_variables({'params': jax_state[key],
-                                     'batch_stats': jax_state['batch_stats']})
-        for p, m in zip(model.parameters(), moments.parameters()):
-            state.optimizer.state[p][name] = m.detach().clone()
-    count = int(jax_state['count'])
-    for p in model.parameters():
-        state.optimizer.state[p]['step'] = torch.tensor(float(count))
-    state.step = count
-    return state
-
-
-def _adam_moments(state):
-    """The port's Adam moments as flax-layout trees {'mu', 'nu'}."""
-    moments = copy.deepcopy(state.model)
-    out = {}
-    for key, name in (('mu', 'exp_avg'), ('nu', 'exp_avg_sq')):
-        with torch.no_grad():
-            for p, m in zip(state.model.parameters(), moments.parameters()):
-                m.copy_(state.optimizer.state[p][name])
-        out[key] = moments.to_flax_variables()['params']
-    return out
-
-
-def _worst_leaf(port_state, jax_state, start):
-    """max over leaves of max |port - jax| / max |jax's change| (+1e-12
-    forgiven outright), both float64."""
-    worst = 0.0
-    for path, want in jax.tree_util.tree_leaves_with_path(jax_state):
-        got, before = port_state, start
-        for key in path:
-            got, before = got[key.key], before[key.key]
-        assert got.dtype == want.dtype == np.float64, path
-        moved = np.abs(want - np.asarray(before, np.float64)).max()
-        worst = max(worst, (np.abs(got - want).max() - 1e-12)
-                    / max(moved, 1e-300))
-    return worst
-
-
+@pytest.mark.slow
 def test_three_float64_steps_match_jax(variables):
     """Each of 3 steps from the state JAX reached before it (the weights,
     BatchNorm statistics, Adam's moments and count): every parameter's
